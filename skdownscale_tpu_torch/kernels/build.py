@@ -10,6 +10,7 @@ wrapper call on a CUDA tensor builds, later calls reuse the loaded library.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -19,7 +20,7 @@ import threading
 import time
 from typing import NamedTuple
 
-__all__ = ["NVCC_FLAGS", "BuildResult", "build", "load"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "BuildResult", "build", "build_all", "load"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -31,7 +32,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+# every CUDA source of the package, by name (csrc/<name>.cu)
+SOURCES = ("rank_map", "slide_sort")
+
+# one lock per source: two threads never build the same library at once,
+# while different sources build side by side
+_locks = {name: threading.Lock() for name in SOURCES}
 
 
 class BuildResult(NamedTuple):
@@ -57,7 +63,7 @@ def build(name: str) -> BuildResult:
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    with _lock:
+    with _locks[name]:
         if os.path.exists(lib):
             return BuildResult(lib, 0.0, "up to date")
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -75,6 +81,14 @@ def build(name: str) -> BuildResult:
             raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
         os.replace(tmp, lib)
         return BuildResult(lib, seconds, log)
+
+
+def build_all() -> dict[str, BuildResult]:
+    """Build every source in :data:`SOURCES`, one ``nvcc`` each, all
+    started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {name: pool.submit(build, name) for name in SOURCES}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

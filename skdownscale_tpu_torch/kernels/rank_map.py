@@ -16,19 +16,19 @@ segments of the minor axis (``G = 1`` is the one-segment-per-row form).
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA float32
 tensor launches the hand-written kernel of ``csrc/rank_map.cu`` (see the
 notes there for what bounds it on the H100); anything else raises.
-``LAUNCHES`` counts kernel launches by name, and only kernel launches.
+``LAUNCHES`` (shared by every kernel of the package) counts kernel
+launches by name, and only kernel launches.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
 import torch
 
 from ..ops.keys import from_ordered_int, to_ordered_int
-from . import build
+from . import LAUNCHES, build, check_launch, on_kernel
 
 __all__ = [
     "COUNT_SORT_MAX_LEN",
@@ -42,9 +42,6 @@ __all__ = [
 # longest segment K1 takes: its O(L^2) compares per segment beat a general
 # sort only for short segments; callers sort longer ones with torch.sort
 COUNT_SORT_MAX_LEN = 256
-
-LAUNCHES: collections.Counter = collections.Counter()
-
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -65,29 +62,6 @@ def _segments(x: torch.Tensor, L: int) -> int:
     if x.dim() != 2 or L <= 0 or x.shape[1] % L:
         raise ValueError(f"expected a (B, G*L) tensor with L={L}, got shape {tuple(x.shape)}")
     return x.shape[0] * (x.shape[1] // L)
-
-
-def _on_kernel(*ts: torch.Tensor) -> bool:
-    """True for CUDA float32 (kernel), False for CPU (plain); raises else."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
-    dev = ts[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda" or any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(
-            f"the CUDA kernel takes float32 tensors on a CUDA device, got "
-            f"{[t.dtype for t in ts]} on {dev}"
-        )
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("the CUDA kernel takes contiguous tensors")
-    return True
-
-
-def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.sdt_error_string(rc).decode()} ({rc})")
 
 
 # ----------------------------------------------------------------------
@@ -111,7 +85,7 @@ def count_sort_segments(x: torch.Tensor, L: int) -> torch.Tensor:
     kernel for a CUDA float32 tensor (``L <= COUNT_SORT_MAX_LEN``), by the
     plain version for a CPU tensor."""
     n_seg = _segments(x, L)
-    if not _on_kernel(x):
+    if not on_kernel(x):
         return count_sort_segments_plain(x, L)
     if L > COUNT_SORT_MAX_LEN:
         raise ValueError(f"count_sort_segments takes L <= {COUNT_SORT_MAX_LEN}, got {L}")
@@ -122,7 +96,7 @@ def count_sort_segments(x: torch.Tensor, L: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.sdt_count_sort_segments(x.data_ptr(), out.data_ptr(), n_seg, L, stream)
-    _check(lib, rc, "count_sort_segments")
+    check_launch(lib, rc, "count_sort_segments")
     LAUNCHES["count_sort_segments"] += 1
     return out
 
@@ -155,7 +129,7 @@ def rank_map_segments(xq: torch.Tensor, res: torch.Tensor, L: int) -> torch.Tens
     n_seg = _segments(xq, L)
     if res.shape != xq.shape:
         raise ValueError(f"res shape {tuple(res.shape)} != xq shape {tuple(xq.shape)}")
-    if not _on_kernel(xq, res):
+    if not on_kernel(xq, res):
         return rank_map_segments_plain(xq, res, L)
     out = torch.empty_like(xq)
     if n_seg == 0:
@@ -166,6 +140,6 @@ def rank_map_segments(xq: torch.Tensor, res: torch.Tensor, L: int) -> torch.Tens
         rc = lib.sdt_rank_map_segments(
             xq.data_ptr(), res.data_ptr(), out.data_ptr(), n_seg, L, stream
         )
-    _check(lib, rc, "rank_map_segments")
+    check_launch(lib, rc, "rank_map_segments")
     LAUNCHES["rank_map_segments"] += 1
     return out

@@ -7,9 +7,10 @@ the reference runs one Python estimator object per grid cell
 predicts every cell of a ``(cells, time)`` tensor at once; its fitted state
 is a tuple of ``(cells, ...)`` tensors on the grid's device.
 
-The monthly BCSD entry takes the dense path at every cell count: the JAX
-package's streaming threshold was set for a 16 GB chip and is re-derived
-for the H100's 80 GB in later work (ROADMAP.md Queue 1 item 5).
+The BCSD entry takes the streaming formulation (lazy fit, group-chunked
+predict) for the daily flavor at every cell count and for the monthly
+flavor from :data:`STREAMING_CELL_THRESHOLD` cells up; below it the monthly
+flavor takes the dense path.
 """
 
 from __future__ import annotations
@@ -18,7 +19,15 @@ from typing import Callable, NamedTuple
 
 from . import bcsd as _bcsd
 
-__all__ = ["register", "supports_batched", "batched_fit", "batched_predict", "batched_attrs"]
+__all__ = [
+    "STREAMING_CELL_THRESHOLD",
+    "GROUP_CHUNK",
+    "register",
+    "supports_batched",
+    "batched_fit",
+    "batched_predict",
+    "batched_attrs",
+]
 
 
 class _Impl(NamedTuple):
@@ -71,8 +80,26 @@ def _single(X):
 # ----------------------------------------------------------------------
 
 
+# Cells from which the monthly BCSD takes the streaming formulation.  The
+# dense path's peak device memory is 29.7 KiB a cell at T=480 (3.712 GiB at
+# 131,072 cells on an H100, PERF.md); 80 GB less a fifth of headroom (the
+# allocator's slack and the prefetched next chunk) holds about 2.1M such
+# cells, so the dense path keeps every grid below 2M cells.  The JAX
+# package's 200,000 was set for a 16 GB chip.  The daily flavor always
+# streams (27x window expansion).
+STREAMING_CELL_THRESHOLD = 2_000_000
+
+# Transform groups per chunk of the streaming loop, by flavor.  The chunk
+# bounds the loop's live (C, Gc*L) temporaries; the monthly flavor streams
+# only at continental cell counts, so it takes a smaller chunk than the
+# always-streaming daily flavor.
+GROUP_CHUNK = {"daily": 8, "monthly": 3}
+
+
 def _bcsd_fit(model, index_fit, X, y):
     fg = model._fit_groups(index_fit)
+    if model._timestep_kind == "daily" or X.shape[0] >= STREAMING_CELL_THRESHOLD:
+        return _bcsd.bcsd_fit_lazy(_single(X), y, fg, with_x_climo=model._with_x_climo)
     p = model._qm_params()
     return _bcsd.bcsd_fit(
         _single(X), y, fg,
@@ -83,19 +110,25 @@ def _bcsd_fit(model, index_fit, X, y):
 def _bcsd_predict(model, state, index_fit, X, index):
     fg = model._fit_groups(index_fit)
     plan = model._predict_plan(fg, index)
+    model._check_anoms(plan)
     p = model._qm_params()
-    return _bcsd.bcsd_predict(
-        state,
-        _single(X),
-        plan,
+    kw = dict(
         variable="temperature" if model._with_x_climo else "precipitation",
         return_anoms=bool(model.return_anoms),
         **{k: p[k] for k in ("alpha", "beta", "extrapolate", "n_endpoints", "detrend")},
     )
+    if isinstance(state, _bcsd.BcsdLazyState):
+        return _bcsd.bcsd_predict_streaming(
+            state, _single(X), plan, group_chunk=GROUP_CHUNK[model._timestep_kind], **kw
+        )
+    return _bcsd.bcsd_predict(state, _single(X), plan, **kw)
 
 
 def _bcsd_attrs(model, state):
-    climo = state.aux.reshape(*state.aux.shape[:-1], 4, -1)[..., 2, :]
+    if isinstance(state, _bcsd.BcsdLazyState):
+        climo = state.aux.reshape(*state.aux.shape[:-1], 2, -1)[..., 0, :]
+    else:
+        climo = state.aux.reshape(*state.aux.shape[:-1], 4, -1)[..., 2, :]
     return {"y_climo_": climo.cpu().numpy()}
 
 

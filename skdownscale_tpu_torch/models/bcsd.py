@@ -1,21 +1,29 @@
-"""BCSD bias correction, monthly dense path.
+"""BCSD bias correction: dense and streaming paths, monthly and daily.
 
-Port of the monthly part of ``skdownscale_tpu/models/bcsd.py``.  The
-reference keeps a Python dict of per-group ``QuantileMapper`` objects and
-loops pandas groupbys; here a BCSD fit or predict is one batched program
-over padded group tables (see :mod:`.grouped`) with an explicit leading
-cell axis.  Group membership, counts, tail windows and label lookups are
-host tables, uploaded once per (plan, device).
+Port of ``skdownscale_tpu/models/bcsd.py``.  The reference keeps a Python
+dict of per-group ``QuantileMapper`` objects and loops pandas groupbys;
+here a BCSD fit or predict is one batched program over padded group tables
+(see :mod:`.grouped`, :mod:`.streaming`) with an explicit leading cell
+axis.  Group membership, counts, tail windows and label lookups are host
+tables, uploaded once per (plan, device).
 
-Grouping semantics (monthly timestep, ``MONTH_GROUPER``): fit, transform
-and climatology all partition by calendar month (``bcsd.py:46-57``); the
-9-point centered climate-trend rolling mean (``bcsd.py:246-250``) runs
-within the ``climate_trend`` groups.
+Grouping semantics preserved:
 
-Not ported yet, each raising ``NotImplementedError``:
-``time_grouper="daily_nasa-nex"`` (ROADMAP.md Queue 1 item 6, needs the
-slide kernel K5 and the streaming path) and ``quantile_mappers_``
-(ROADMAP.md Queue 1 item 7, needs ``models/quantile.py``).
+* monthly timestep (default ``MONTH_GROUPER``): fit, transform and
+  climatology all partition by calendar month (``bcsd.py:46-57``);
+* ``'daily_nasa-nex'``: fit groups are the +/-15-day padded day-of-year
+  windows (``groupers.py:19-82``), while predict-time transform and
+  climate-trend climatology removal group by day of month
+  (``bcsd.py:51-53``, ``climate_trend_grouper=DAY_GROUPER``) and look those
+  keys up in the day-of-year-keyed tables, as the reference does;
+* daily with ``return_anoms=True`` raises: the reference's climatology
+  removal concatenates overlapping day groups and fails its own shape check
+  (``bcsd.py:90-92`` / ``181-183``).
+
+The 9-point centered climate-trend rolling mean (``bcsd.py:246-250``) runs
+within the ``climate_trend`` groups.  Not ported yet: ``quantile_mappers_``
+raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 7, needs
+``models/quantile.py``).
 """
 
 from __future__ import annotations
@@ -26,12 +34,13 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.slide_sort import slide_sorted_windows
 from ..ops.rolling import (
     rolling_mean_grouped_flat,
     rolling_mean_grouped_matmul,
     use_rolling_matmul,
 )
-from ..utils.timeindex import PaddedGroups, TimeIndex
+from ..utils.timeindex import PaddedGroups, TimeIndex, padded_doy_groups
 from .base import SingleCellEstimator, asarray_2d
 from .grouped import (
     GroupedCdf,
@@ -40,6 +49,9 @@ from .grouped import (
     grouped_qm_transform,
     scatter_groups,
 )
+from .groupers import DAY_GROUPER, MONTH_GROUPER
+from .slide import SlidePlan, build_slide_plan, consulted_groups
+from .streaming import stream_tables_on, streaming_qm_transform
 
 __all__ = [
     "BcsdTemperature",
@@ -47,15 +59,13 @@ __all__ = [
     "BcsdState",
     "bcsd_fit",
     "bcsd_predict",
+    "BcsdLazyState",
+    "bcsd_fit_lazy",
+    "bcsd_predict_streaming",
     "MONTH_GROUPER",
     "DAY_GROUPER",
 ]
 
-_DAILY_TODO = (
-    "time_grouper='daily_nasa-nex' is not ported to PyTorch yet (ROADMAP.md "
-    "Queue 1 item 6: daily BCSD, the slide kernel K5 and the streaming path); "
-    "the JAX package runs it"
-)
 _MAPPERS_TODO = (
     "quantile_mappers_ is not ported to PyTorch yet (ROADMAP.md Queue 1 item 7: "
     "models/quantile.py); the fitted CDFs are in the estimator's state"
@@ -102,12 +112,13 @@ def _pandas_partition(index, grouper) -> PaddedGroups:
 class _PredictPlan(NamedTuple):
     """Host-side group structure for one (fit index, predict index) pair."""
 
-    fit: PaddedGroups
+    fit: PaddedGroups  # possibly overlapping (daily flavor)
     transform: PaddedGroups  # partition of the predict axis
     rolling: PaddedGroups  # partition of the predict axis (climate_trend)
     transform_to_fit: np.ndarray  # (Gt,) fit-row for each transform group
     shift_labels: np.ndarray  # (Tp,) fit-row per predict step (x-climo lookup)
-    anom_labels: np.ndarray  # (Tp,) fit-row per predict step (y-climo lookup)
+    anom_labels: np.ndarray | None  # (Tp,) fit-row per predict step, None -> raise
+    slide: SlidePlan | None = None  # daily sliding-window plan (K5)
 
     def __hash__(self):
         return hash(
@@ -117,7 +128,8 @@ class _PredictPlan(NamedTuple):
                 self.rolling,
                 self.transform_to_fit.tobytes(),
                 self.shift_labels.tobytes(),
-                self.anom_labels.tobytes(),
+                None if self.anom_labels is None else self.anom_labels.tobytes(),
+                self.slide,
             )
         )
 
@@ -138,10 +150,12 @@ def _match_keys(src_keys, dst_keys, what: str) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _plan_tables(plan: _PredictPlan, device: torch.device):
     """Device index tensors of a predict plan: the fit-row columns aligned
-    to the transform partition, and the climatology lookups."""
+    to the transform partition, and the climatology lookups (``anom_labels``
+    falls back to ``shift_labels``, as in the JAX package)."""
     G, L = plan.fit.indices.shape
     t2f = plan.transform_to_fit
     aligned_cols = (t2f[:, None] * L + np.arange(L)).reshape(-1)
+    anom = plan.anom_labels if plan.anom_labels is not None else plan.shift_labels
 
     def i(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.long).to(device)
@@ -150,7 +164,7 @@ def _plan_tables(plan: _PredictPlan, device: torch.device):
         "aligned_cols": i(aligned_cols),
         "t2f": i(t2f),
         "shift_labels": i(plan.shift_labels),
-        "anom_labels": i(plan.anom_labels),
+        "anom_labels": i(anom),
     }
 
 
@@ -291,18 +305,152 @@ def bcsd_predict(
 
 
 # ----------------------------------------------------------------------
-# sklearn-compatible wrappers
+# streaming (group-chunked) variant: the daily flavor at any cell count,
+# the monthly flavor above STREAMING_CELL_THRESHOLD (models/batched.py)
 # ----------------------------------------------------------------------
 
 
-def MONTH_GROUPER(x):
-    """``groupers.py:11-12``."""
-    return x.month
+class BcsdLazyState(NamedTuple):
+    """Deferred BCSD fit state: raw target series + per-group climatologies.
+
+    The daily flavor's 366 overlapping +/-15-day windows expand the training
+    series 27x, so the fit stores the raw series and predict computes only
+    the fit rows its transform partition consults (31 of 366 in the daily
+    flavor), chunk by chunk.
+    """
+
+    y: torch.Tensor  # (..., T_fit) raw target series
+    aux: torch.Tensor  # (..., 2*G): [y_climo, x_climo]
+
+    def unpack(self, G: int):
+        a = self.aux.reshape(*self.aux.shape[:-1], 2, G)
+        return a[..., 0, :], a[..., 1, :]  # y_climo, x_climo
 
 
-def DAY_GROUPER(x):
-    """``groupers.py:15-16``."""
-    return x.day
+def _membership_matrix(groups: PaddedGroups, n: int, dtype=np.float64) -> np.ndarray:
+    """Host (n, G) mean-pooling matrix: column g averages group g's members
+    (column sums to 1; overlapping groups allowed)."""
+    G, L = groups.indices.shape
+    M = np.zeros((n, G), dtype)
+    inv = 1.0 / np.maximum(groups.counts, 1)
+    for g in range(G):
+        np.add.at(M[:, g], groups.indices[g][groups.mask[g]], inv[g])
+    return M
+
+
+@functools.lru_cache(maxsize=16)
+def _membership_dev(groups: PaddedGroups, n: int, device: torch.device, dtype: torch.dtype):
+    return torch.as_tensor(_membership_matrix(groups, n), dtype=dtype).to(device)
+
+
+def bcsd_fit_lazy(x, y, fit_groups: PaddedGroups, *, with_x_climo: bool = True) -> BcsdLazyState:
+    """Deferred-CDF BCSD fit: only the per-group climatologies
+    (``bcsd.py:219-223``), as two ``(C, T) @ (T, G)`` mean-pooling products
+    in full float32 or float64 (TF32 is off, as the JAX package ran them at
+    ``Precision.HIGHEST``), with the raw target carried as state."""
+    M = _membership_dev(fit_groups, y.shape[-1], y.device, y.dtype)
+    y_climo = y @ M
+    x_climo = x @ M if with_x_climo else torch.zeros_like(y_climo)
+    aux = torch.stack([y_climo, x_climo], dim=-2)
+    return BcsdLazyState(y, aux.reshape(*y_climo.shape[:-1], -1))
+
+
+def _slide_n_rows(plan: _PredictPlan, group_chunk: int) -> int:
+    """Slide output rows padded to the chunk grid (NC*Gc transform groups),
+    so chunk ``c`` reads windows ``[c*Gc, (c+1)*Gc)`` as one slice of the
+    flat slide output."""
+    Gt = plan.transform.indices.shape[0]
+    Gc = min(group_chunk, Gt)
+    return -(-Gt // Gc) * Gc
+
+
+def bcsd_predict_streaming(
+    state,
+    x,
+    plan: _PredictPlan,
+    *,
+    variable: str = "temperature",
+    return_anoms: bool = True,
+    alpha: float = 0.4,
+    beta: float = 0.4,
+    extrapolate="both",
+    n_endpoints: int = 10,
+    detrend: bool = False,
+    rolling_window: int = 9,
+    group_chunk: int = 8,
+):
+    """``bcsd_predict`` with the grouped QM transform run as a loop over
+    transform-group chunks (see :mod:`.streaming`).  Takes a dense
+    :class:`BcsdState` (presorted group CDFs) or a :class:`BcsdLazyState`.
+
+    With a lazy state and a slide plan (daily, ``detrend=False``) the
+    consulted windows' sorted values come from the slide kernel K5 and the
+    chunks read them as presorted slices; otherwise each chunk gathers its
+    raw windows and sorts them (K1 up to 256 members).  The slide route is
+    taken on every device, so a NaN inside a fit window follows K5's rule
+    everywhere (see :mod:`..kernels.slide_sort`)."""
+    n = x.shape[-1]
+    G, L = plan.fit.indices.shape
+    fit_tab, t2f_tab = plan.fit, plan.transform_to_fit
+    if isinstance(state, BcsdLazyState):
+        y_climo, x_climo = state.unpack(G)
+        source, presorted, state_trend = state.y, False, None
+        if plan.slide is not None and not detrend:
+            svals = slide_sorted_windows(state.y, plan.slide, n_rows=_slide_n_rows(plan, group_chunk))
+            source, presorted = svals.to(x.dtype), True
+            fit_tab = consulted_groups(plan.fit, plan.slide)
+            t2f_tab = np.searchsorted(plan.slide.consulted, plan.transform_to_fit).astype(np.int32)
+    else:
+        qm, y_climo, x_climo = state.unpack(G, L)
+        source, presorted = qm.vals, True
+        state_trend = (qm.trend_slope, qm.trend_intercept)
+
+    pt = _plan_tables(plan, x.device)
+    if variable == "temperature":
+        rolled = _climate_trend_rolled(x, plan, rolling_window, n)
+        x_shift = rolled - x_climo.index_select(-1, pt["shift_labels"])
+        x_no_shift = x - x_shift
+    else:
+        x_no_shift = x
+
+    tables = stream_tables_on(
+        fit_tab,
+        plan.transform,
+        np.ascontiguousarray(t2f_tab, dtype=np.int32).tobytes(),
+        n,
+        alpha,
+        beta,
+        n_endpoints,
+        group_chunk,
+        "state" if presorted else "raw",
+        x.device,
+        x.dtype,
+    )
+    # fold the additive terms (restore the climate trend, remove the target
+    # climatology) into the chunk loop's output carry
+    out_init = None
+    if variable == "temperature":
+        out_init = x_shift
+        if return_anoms:
+            out_init = out_init - y_climo.index_select(-1, pt["anom_labels"])
+    out = streaming_qm_transform(
+        source,
+        x_no_shift,
+        tables,
+        presorted=presorted,
+        extrapolate=extrapolate,
+        detrend=detrend,
+        state_trend=state_trend,
+        out_init=out_init,
+    )
+    if variable != "temperature" and return_anoms:
+        out = out / y_climo.index_select(-1, pt["anom_labels"])  # ratio anomalies (bcsd.py:172-185)
+    return out
+
+
+# ----------------------------------------------------------------------
+# sklearn-compatible wrappers
+# ----------------------------------------------------------------------
 
 
 class BcsdBase(SingleCellEstimator):
@@ -319,6 +467,7 @@ class BcsdBase(SingleCellEstimator):
     single_cell_device = torch.device("cpu")
 
     _fit_attributes = ["y_climo_"]
+    _timestep = "MS"  # frequency of the index made up for input without one
     _with_x_climo = True
 
     def __init__(
@@ -336,15 +485,17 @@ class BcsdBase(SingleCellEstimator):
         self.qm_kwargs = qm_kwargs
 
     # -- config ---------------------------------------------------------
-    def _check_timestep(self) -> None:
+    @property
+    def _timestep_kind(self) -> str:
         if isinstance(self.time_grouper, str):
             if self.time_grouper == "daily_nasa-nex":
-                raise NotImplementedError(_DAILY_TODO)
+                return "daily"
             raise ValueError(
                 "string frequency time_groupers are not supported (the reference "
                 "passes them uninterpreted to pandas.groupby, bcsd.py:49); use a "
-                "callable or a pd.Grouper"
+                "callable, a pd.Grouper, or 'daily_nasa-nex'"
             )
+        return "monthly"
 
     def _qm_params(self):
         kw = dict(self.qm_kwargs or {})
@@ -363,16 +514,32 @@ class BcsdBase(SingleCellEstimator):
 
     # -- host-side group resolution ------------------------------------
     def _fit_groups(self, index) -> PaddedGroups:
-        self._check_timestep()
+        if self._timestep_kind == "daily":
+            return padded_doy_groups(TimeIndex.from_any(index), offset=15)
         return _pandas_partition(index, self.time_grouper)
 
     def _predict_plan(self, fit_groups: PaddedGroups, index) -> _PredictPlan:
-        self._check_timestep()
-        transform = _pandas_partition(index, self.time_grouper)
+        daily = self._timestep_kind == "daily"
+        transform = _pandas_partition(
+            index, self.climate_trend_grouper if daily else self.time_grouper
+        )
         rolling = _pandas_partition(index, self.climate_trend)
         t_to_fit = _match_keys(transform.keys, fit_groups.keys, "transform")
         shift_labels = t_to_fit[transform.labels]
+        if daily:  # the reference raises on overlapping-group climatology
+            return _PredictPlan(
+                fit_groups, transform, rolling, t_to_fit, shift_labels, None,
+                build_slide_plan(fit_groups, t_to_fit),
+            )
         return _PredictPlan(fit_groups, transform, rolling, t_to_fit, shift_labels, shift_labels)
+
+    def _check_anoms(self, plan: _PredictPlan) -> None:
+        if self.return_anoms and plan.anom_labels is None:
+            raise ValueError(
+                "Result shape does not match input shape (daily BCSD with "
+                "return_anoms=True replicates the reference's overlapping-group "
+                "climatology failure, bcsd.py:90-92)"
+            )
 
     # -- API ------------------------------------------------------------
     def fit(self, X, y):
@@ -411,6 +578,7 @@ class BcsdBase(SingleCellEstimator):
         Xa = asarray_2d(X)
         index = self._pandas_index(X, len(Xa))
         plan = self._predict_plan(self._fit_groups_, index)
+        self._check_anoms(plan)
         p = self._qm_params()
         out = bcsd_predict(
             self._state,

@@ -222,12 +222,29 @@ def test_single_cell_wrapper_matches_jax(rng, return_anoms):
     npt.assert_allclose(got.to_numpy(), want.to_numpy(), rtol=0, atol=ATOL)
 
 
+def test_single_cell_without_datetime_index_matches_jax(rng):
+    """Input without a DatetimeIndex gets a made-up monthly index from 1950,
+    with the JAX package's warning."""
+    _, x, y = _month_series(rng, 1, 120)
+    X, Y = x.T.copy(), y[0].copy()  # arrays, no index
+    with pytest.warns(UserWarning, match="making one up"):
+        got = pb.BcsdTemperature(return_anoms=False).fit(X, Y).predict(X)
+    with pytest.warns(UserWarning, match="making one up"):
+        want = jb.BcsdTemperature(return_anoms=False).fit(X, Y).predict(X)
+    assert got.shape == want.shape == (120, 1)
+    npt.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
 def test_unported_parts_raise_naming_the_roadmap(rng):
     idx, x, y = _month_series(rng, 1, 60)
     X = pd.DataFrame({"t": x[0]}, index=idx)
     Y = pd.DataFrame({"t": y[0]}, index=idx)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pb.BcsdTemperature(time_grouper="daily_nasa-nex").fit(X, Y)
+    # daily BCSD is ported: it fits and predicts without raising
+    didx = pd.date_range("2000-01-01", periods=800, freq="D")
+    dX = pd.DataFrame({"t": 283 + rng.normal(0, 2, 800)}, index=didx)
+    dY = pd.DataFrame({"t": 282 + rng.normal(0, 2, 800)}, index=didx)
+    daily = pb.BcsdTemperature(time_grouper="daily_nasa-nex", return_anoms=False).fit(dX, dY)
+    assert np.isfinite(daily.predict(dX).to_numpy()).all()
     m = pb.BcsdTemperature().fit(X, Y)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         m.quantile_mappers_

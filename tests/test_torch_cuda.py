@@ -15,6 +15,10 @@ import torch
 
 import skdownscale_tpu_torch as P
 from skdownscale_tpu_torch.kernels import rank_map as K
+from skdownscale_tpu_torch.kernels import slide_sort as S
+from skdownscale_tpu_torch.models import bcsd as B
+from skdownscale_tpu_torch.models.slide import build_slide_plan
+from skdownscale_tpu_torch.utils.timeindex import TimeIndex, padded_doy_groups
 from skdownscale_tpu_torch.xlite import DataArray
 
 
@@ -111,3 +115,105 @@ def test_pointwise_on_cuda_matches_cpu_float64(cuda_device, rng):
     assert np.quantile(d, 0.999) <= 1e-3
     assert np.mean(d > 1e-3) <= 1e-3 and d.max() <= 5.0
     npt.assert_allclose(climo, want_climo, rtol=0, atol=1e-3)
+
+
+def _slide_cases():
+    """(name, TimeIndex): leap years, a noleap calendar, partial windows."""
+    return [
+        ("standard_6y", TimeIndex.from_pandas(pd.date_range("1999-01-01", periods=6 * 365 + 2, freq="D"))),
+        ("noleap_10y", TimeIndex.range_daily(3650, calendar="noleap")),
+        ("short", TimeIndex.from_pandas(pd.date_range("2003-01-20", periods=400, freq="D"))),
+    ]
+
+
+@pytest.mark.cuda
+def test_slide_kernel_bitwise_vs_plain(cuda_device, rng):
+    """K5 on the card against its plain version: ties and +-0 (H2),
+    clustered inserts (H3), calendars (H4), all-NaN and interior-NaN cells
+    (H5, H1), and the NaN whose key equals the pad key."""
+    for name, ti in _slide_cases():
+        plan = build_slide_plan(padded_doy_groups(ti), np.arange(31))
+        T = len(ti)
+        y = _adversarial(rng, 64, T)
+        y[3] = np.nan
+        doy = ti.dayofyear
+        y[4] = np.where(doy % 2 == 0, -100.0, 100.0)
+        y[4, doy >= 17] = rng.normal(0, 0.5, int((doy >= 17).sum()))
+        y[5, ::9] = np.frombuffer(np.int32(0x7FFFFFFF).tobytes(), np.float32)[0]
+        yd = torch.from_numpy(y).to(cuda_device)
+        n_rows = len(plan.consulted) + 1
+        n0 = K.LAUNCHES["slide_sorted_windows"]
+        got = S.slide_sorted_windows(yd, plan, n_rows=n_rows)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["slide_sorted_windows"] == n0 + 1
+        want = S.slide_sorted_windows_plain(yd, plan, n_rows=n_rows)
+        assert got.shape == (64, n_rows * plan.Lto)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+@pytest.mark.cuda
+def test_slide_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    ti = TimeIndex.range_daily(800)
+    plan = build_slide_plan(padded_doy_groups(ti), np.arange(31))
+    with pytest.raises(TypeError):
+        S.slide_sorted_windows(torch.zeros((2, 800), dtype=torch.float64, device=cuda_device), plan)
+    with pytest.raises(ValueError):
+        S.slide_sorted_windows(torch.zeros((2, 1600), device=cuda_device)[:, ::2], plan)
+
+
+def _daily_grid(rng, T, C):
+    idx = pd.date_range("1990-01-01", periods=T, freq="D")
+    seas = (10 * np.sin(2 * np.pi * (idx.dayofyear.to_numpy() - 1) / 365.25))[:, None]
+    x = (283 + seas + rng.normal(0, 2, (T, C)) + 1.5).astype(np.float32)
+    y = (282 + seas + rng.normal(0, 1.8, (T, C))).astype(np.float32)
+    x[:, [0, 7, 100]] = np.nan
+    return idx, x, y
+
+
+@pytest.mark.cuda
+def test_daily_pointwise_on_cuda_matches_cpu_float64(cuda_device, rng):
+    """Daily BCSD, float32 on the card against the float64 CPU path, with
+    the tolerance of the monthly test above."""
+    idx, x, y = _daily_grid(rng, 4 * 365 + 1, 256)
+    coords, dims = {"time": idx, "cell": np.arange(256)}, ("time", "cell")
+
+    def run(device, a, b):
+        m = P.PointWiseDownscaler(
+            P.BcsdTemperature(time_grouper="daily_nasa-nex", return_anoms=False), device=device
+        )
+        out = m.fit(DataArray(a, dims, coords), DataArray(b, dims, coords)).predict(
+            DataArray(a, dims, coords)
+        )
+        return out.values, m.get_attr("y_climo_").values
+
+    n0 = dict(K.LAUNCHES)
+    got, climo = run(cuda_device, x, y)
+    for name in ("slide_sorted_windows", "rank_map_segments"):
+        assert K.LAUNCHES[name] > n0.get(name, 0), name
+    want, want_climo = run("cpu", x.astype(np.float64), y.astype(np.float64))
+    assert got.dtype == np.float32 and climo.shape == (366, 256)
+    npt.assert_array_equal(np.isnan(got), np.isnan(want))
+    d = np.abs(got.astype(np.float64) - want)[~np.isnan(want)]
+    assert np.quantile(d, 0.999) <= 1e-3
+    assert np.mean(d > 1e-3) <= 1e-3 and d.max() <= 5.0
+    npt.assert_allclose(climo, want_climo, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_monthly_streaming_on_cuda_matches_dense(cuda_device, rng):
+    T, C = 480, 512
+    idx = pd.date_range("1970-01-01", periods=T, freq="MS")
+    seas = 8 * np.sin(2 * np.pi * (idx.month.values - 1) / 12)
+    x = torch.from_numpy((283 + seas + rng.normal(0, 2, (C, T)) + 1.5).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy((282 + seas + rng.normal(0, 1.8, (C, T))).astype(np.float32)).to(cuda_device)
+    m = B.BcsdTemperature(return_anoms=False)
+    fg = m._fit_groups(idx)
+    plan = m._predict_plan(fg, idx)
+    dense = B.bcsd_predict(B.bcsd_fit(x, y, fg), x, plan, return_anoms=False)
+    n0 = dict(K.LAUNCHES)
+    got = B.bcsd_predict_streaming(B.bcsd_fit_lazy(x, y, fg), x, plan, return_anoms=False, group_chunk=3)
+    torch.cuda.synchronize()
+    for name in ("count_sort_segments", "rank_map_segments"):
+        assert K.LAUNCHES[name] >= n0.get(name, 0) + 4, name  # once per chunk
+    d = (got.double() - dense.double()).abs().cpu().numpy()
+    assert np.quantile(d, 0.999) <= 1e-3 and d.max() <= 5.0

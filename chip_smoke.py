@@ -34,10 +34,31 @@ with a non-zero exit at the first failure, it:
 7. runs ``bcsd_fit_lazy`` + ``bcsd_predict_streaming(group_chunk=3)`` on
    config 2's valid cells on the card (the monthly streaming path), checks
    that K1 and K2 were launched once per chunk and that the result agrees
-   with the dense path's.
+   with the dense path's;
+8. holds the batched table interpolation (K6) bitwise against its plain
+   version at config 9b's two calls (65,536 rows, 1,462 knots, 732 queries,
+   one with per-cell knots and a shared plotting-position vector as values,
+   the other the reverse), at a small table (42 knots, 40 queries) and at a
+   20-year daily table (16,384 rows, 7,307 knots, 3,654 queries), on seeded
+   inputs with ties, +inf pads, +-1e20 sentinels, NaN knot rows, knot hits
+   and NaN / +-inf queries, and times both;
+9. config 9b, this slice's main path: fits ``PointWiseDownscaler(
+   TrendAwareQuantileMappingRegressor(QuantileMappingReressor(
+   extrapolate="both")))`` over 1,460 days from 1990-01-01 and predicts 730
+   days from 2050-01-01 on 65,536 cells (256 x 256, about 5% NaN cells):
+   K6 launched, 512 cells against the CPU float64 path, wall, cells/s, peak
+   device memory and stages;
+10. config 9a: ``QuantileMapper(detrend=True)`` fit + ``transform`` on the
+    same data (K2 with one 730-long segment a row), with K2's time there;
+11. config 3: ``EquidistantCdfMatcher(kind="difference", extrapolate="both")``
+    on 16,384 cells fit over 3,650 days, predicting 3,650 days (the
+    equal-length identity branch) and 1,825 days (host bracket tables); no
+    kernel runs there.
 
-The line before the last is a JSON object with each kernel's launches, error
-and times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with each kernel's launches by
+its path, error, times, bound and the one PyTorch call that computes the
+same function (where there is one); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -63,8 +84,24 @@ D_REF_CELLS = 512
 # fitted CDF: at most 0.1% of values may exceed 1e-3 K, none by more than
 # 5 K (CDF steps are a fraction of the ~2 K spread of a month group).
 TOL_P999, TOL_SHARE, TOL_MAX = 1e-3, 1e-3, 5.0
+# the quantile family (configs 9a, 9b, 3), same metric: detrending in
+# float32 perturbs a series by about its float32 spacing at ~283 K (3e-5 K),
+# and the piecewise-linear map moves that perturbation by the ratio of the
+# local y and x knot spacings, up to one y-CDF step where two x knots nearly
+# tie.  The bulk stays within 2e-3 K at the 99.9th percentile, at most 0.5%
+# of values above 1e-3 K, none above 5 K.
+TOL_Q = (2e-3, 5e-3, 5.0)
 # (rows, segments per row, segment length): the main path's, then G=1 forms
 KERNEL_SHAPES = [(N_CELLS, 12, 40), (65_536, 1, 7), (65_536, 1, 31), (16_384, 1, 256)]
+# config 9 (bench.py:583-659): 65,536 cells, fit 4 y daily, predict 2 y
+Q_CELLS, Q_SIDE, Q_FIT, Q_PRED = 65_536, 256, 1_460, 730
+# config 3 (ROADMAP Queue 1 item 7): QDM, 16,384 cells, fit 10 y daily
+E_CELLS, E_SIDE, E_FIT, E_PRED = 16_384, 128, 3_650, 1_825
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
+# bound of a kernel is the larger of its compulsory bytes over the memory
+# rate and its operations over the float32 (non-tensor-core) rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 KERNELS = {
     "count_sort_segments": {
@@ -81,6 +118,11 @@ KERNELS = {
         "route": "cuda",
         "source": "skdownscale_tpu_torch/csrc/slide_sort.cu",
         "replaces": "skdownscale_tpu/ops/pallas/slide_sort_kernel.py:238",
+    },
+    "batched_interp": {
+        "route": "cuda",
+        "source": "skdownscale_tpu_torch/csrc/interp.cu",
+        "replaces": "skdownscale_tpu/ops/pallas/interp_kernel.py:92",
     },
 }
 
@@ -134,6 +176,14 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take for
+    ``n_bytes`` of compulsory traffic and ``n_ops`` float32 operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bitwise_err(a, b, what):
     """Max |a - b|; fails unless a and b are bitwise equal."""
     import torch
@@ -171,12 +221,23 @@ def kernel_phase(rng, dev):
             "rank_map_segments": (cuda_ms(lambda: K.rank_map_segments(x, res, L)),
                                   cuda_ms(lambda: K.rank_map_segments_plain(x, res, L))),
         }
+        # the one PyTorch call that sorts every segment (NaN and -0 order differ)
+        library = {"count_sort_segments": cuda_ms(lambda: torch.sort(x.view(-1, L), dim=-1)),
+                   "rank_map_segments": None}
+        # K1 reads and writes each key once, and a sort needs n log2 L
+        # compares; K2 reads the queries and results and writes the output
+        n = B * G * L
+        n_bytes = {"count_sort_segments": 8 * n, "rank_map_segments": 12 * n}
         for name, err in (("count_sort_segments", e1), ("rank_map_segments", e2)):
             ms, plain_ms = t[name]
+            b_ms, b_by = bound(n_bytes[name], n * np.log2(L))
+            lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
             print(f"kernel {name} B={B} G={G} L={L}: bitwise equal to plain, "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"one PyTorch call {lib}")
             if (G, L) == (12, 40):  # the main path's shape goes in the JSON line
-                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[name]}
         del x, res, k1, k2
     return results
 
@@ -229,12 +290,15 @@ def slide_kernel_phase(rng, dev):
         plain_ms = cuda_ms(lambda: S.slide_sorted_windows_plain(yd, plan, n_rows=n_rows),
                            iters=iters, warmup=1)
         out_gb = got.numel() * 4 / 1e9
+        # reads each series once, writes each window slot once
+        b_ms, b_by = bound(C * T * 4 + got.numel() * 4, got.numel() * np.log2(plan.Lto))
         print(f"kernel slide_sorted_windows {name} ({C} cells x {T} days, {len(plan.consulted)} "
               f"windows, Lt={plan.Lt}, Wp={len(plan.w0_idx)}, BW={plan.add_idx.shape[1]}, "
               f"n_rows={n_rows}): bitwise equal to plain, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"output {out_gb:.3f} GB ({out_gb / ms:.3f} TB/s written)")
+              f"bound {b_ms:.4f} ms ({b_by}), output {out_gb:.3f} GB ({out_gb / ms:.3f} TB/s written)")
         if name == "config 5":  # the main path's shape goes in the JSON line
-            results["slide_sorted_windows"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            results["slide_sorted_windows"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         del yd, got
     return results
 
@@ -395,24 +459,10 @@ def streaming_phase(X, Y, nan_cells, card, dev):
            "streaming: the streaming output is outside the stated tolerance of the dense path")
 
 
-def stage_times(X, Y, dev, make_model):
-    """The runner's steps one by one (X is packed once here; the runner
-    packs it again for predict): host packing, copies, the host planning of
-    group tables, the fit and predict stages and the unpack; then the device
-    time of the fit and predict cores by CUDA events (planning done once,
-    outside the events) and the predict core's largest kernels by
-    ``torch.profiler``."""
+def lapper(t):
+    """``lap(name, fn)``: runs ``fn`` between two synchronises and adds its
+    host-clock ms to ``t[name]``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    import skdownscale_tpu_torch as sdt
-    from skdownscale_tpu_torch.models import batched
-    from skdownscale_tpu_torch.models import bcsd as B
-    from skdownscale_tpu_torch.utils import native
-
-    m = sdt.PointWiseDownscaler(make_model(), device=dev)
-    est = m._model
-    t = {}
 
     def lap(name, fn):
         torch.cuda.synchronize()
@@ -422,6 +472,46 @@ def stage_times(X, Y, dev, make_model):
         t[name] = t.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
         return r
 
+    return lap
+
+
+def print_top_kernels(what, fn):
+    """One ``fn()`` under ``torch.profiler``: its ten largest device kernels
+    and copies (not the host ops above them), by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            rows.append((getattr(e, "device_time_total", 0.0), e.count, e.key))
+    rows.sort(reverse=True)
+    print(f"stages: {what} core's largest kernels (torch.profiler, ms over calls): "
+          + "; ".join(f"{k[:60]} x{n} {us / 1e3:.3f}" for us, n, k in rows[:10])
+          + f"; all {sum(r[0] for r in rows) / 1e3:.3f}")
+
+
+def stage_times(X, Y, dev, make_model):
+    """The runner's steps one by one (X is packed once here; the runner
+    packs it again for predict): host packing, copies, the host planning of
+    group tables, the fit and predict stages and the unpack; then the device
+    time of the fit and predict cores by CUDA events (planning done once,
+    outside the events) and the predict core's largest kernels by
+    ``torch.profiler``."""
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.models import batched
+    from skdownscale_tpu_torch.models import bcsd as B
+    from skdownscale_tpu_torch.utils import native
+
+    m = sdt.PointWiseDownscaler(make_model(), device=dev)
+    est = m._model
+    t = {}
+    lap = lapper(t)
     px = lap("pack grid", lambda: m._pack(m._to_feature_x(X)))
     py = lap("pack grid", lambda: m._pack(m._to_feature_x(Y)))
     ids = lap("cell mask", lambda: np.nonzero(native.valid_mask(px["flat"][0, 0]))[0].astype(np.int32))
@@ -461,18 +551,287 @@ def stage_times(X, Y, dev, make_model):
 
     t["fit device"] = cuda_ms(fit_core, iters=5, warmup=1)
     t["predict device"] = cuda_ms(predict_core, iters=5, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        predict_core()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):  # kernels and copies, not the host ops above them
-            rows.append((getattr(e, "device_time_total", 0.0), e.count, e.key))
-    rows.sort(reverse=True)
-    print("stages: predict core's largest kernels (torch.profiler, ms over calls): "
-          + "; ".join(f"{k[:60]} x{n} {us / 1e3:.3f}" for us, n, k in rows[:10])
-          + f"; all {sum(r[0] for r in rows) / 1e3:.3f}")
+    print_top_kernels("predict", predict_core)
     return t
+
+
+def interp_tables(g, dev, B, n_fit, n_q, call):
+    """Seeded float32 inputs of one K6 call of the QMR predict, made on the
+    card: ``call`` 1 interpolates sorted test values (B, n_q+2) on per-cell
+    sorted fit values (B, n_fit+2) with the shared plotting positions as
+    values; ``call`` 2 interpolates plotting positions (B, n_q+2) on the
+    shared plotting positions with per-cell values.  Sorted rows end in the
+    OLS endpoints near -+3e22, the pp vector in the -+1e20 sentinels.  Made
+    adversarial: tied rows, +inf-padded rows (pad_table form), a NaN knot in
+    some rows, knot hits, NaN and +-inf queries."""
+    import torch
+
+    def sorted_rows(rows, n, loc):
+        v = torch.randn((rows, n), generator=g, device=dev) * 2.0 + loc
+        v[: rows // 10] = torch.round(v[: rows // 10] * 2.0) / 2.0  # ties
+        v = torch.sort(v, dim=1).values
+        lo, hi = torch.full((rows, 1), -3e22, device=dev), torch.full((rows, 1), 3e22, device=dev)
+        return torch.cat([lo, v, hi], dim=1).contiguous()
+
+    L, Q = n_fit + 2, n_q + 2
+    pp = torch.cat([torch.tensor([-1e20], device=dev),
+                    (torch.arange(1, n_fit + 1, device=dev, dtype=torch.float32) - 0.4) / (n_fit + 0.2),
+                    torch.tensor([1e20], device=dev)])[None]
+    table = sorted_rows(B, n_fit, 283.0)
+    pad = torch.arange(B, device=dev) % 20 == 3  # +inf-padded rows: the last fifth
+    cut = L - L // 5
+    if call == 1:
+        table[pad, cut:] = float("inf")
+        q = sorted_rows(B, n_q, 283.6)
+        knots = table
+    else:
+        table[pad, cut:] = table[pad, cut - 1 : cut]
+        q = torch.sort(torch.rand((B, Q), generator=g, device=dev) * 1.1 - 0.05, dim=1).values
+        q[:, 0], q[:, -1] = -1e20, 1e20
+        q[::50, -2] = 8.7e4  # a re-extrapolated plotting position
+        knots = pp.expand(B, L)
+    hit = torch.rand((B, Q), generator=g, device=dev) < 0.05
+    cols = torch.randint(0, L, (B, Q), generator=g, device=dev)
+    q = torch.where(hit, torch.gather(knots, 1, cols), q)
+    q[::97, 5] = float("nan")
+    q[::89, 6] = float("inf")
+    q[::83, 7] = float("-inf")
+    table[1::101, L // 3] = float("nan")  # NaN knot rows
+    q = q.contiguous()
+    return (table, pp, q) if call == 1 else (pp, table, q)
+
+
+def interp_kernel_phase(dev):
+    """K6 bitwise against its plain version at config 9b's two calls, a
+    small table and a 20-year daily table, and timed."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import interp as I
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [("config 9b call 1", Q_CELLS, Q_FIT, Q_PRED, 1), ("config 9b call 2", Q_CELLS, Q_FIT, Q_PRED, 2),
+             ("small", Q_CELLS, 40, 38, 1), ("20-year daily", 16_384, 7_305, 3_652, 2)]
+    results = {}
+    for name, B, n_fit, n_q, call in cases:
+        xp, fp, q = interp_tables(g, dev, B, n_fit, n_q, call)
+        got = I.batched_interp(xp, fp, q)
+        torch.cuda.synchronize()
+        err = bitwise_err(got, I.batched_interp_plain(xp, fp, q), f"K6 {name}")
+        ms = cuda_ms(lambda: I.batched_interp(xp, fp, q))
+        plain_ms = cuda_ms(lambda: I.batched_interp_plain(xp, fp, q), iters=5, warmup=1)
+        L, Q = xp.shape[1], q.shape[1]
+        n_bytes = 4 * (xp.numel() + fp.numel() + q.numel() + got.numel())
+        b_ms, b_by = bound(n_bytes, B * Q * (np.ceil(np.log2(L)) + 15))
+        print(f"kernel batched_interp {name} ({B} rows, L={L}, Q={Q}, shared "
+              f"{'fp' if fp.shape[0] == 1 else 'xp'}): bitwise equal to plain, NaN out "
+              f"{int(torch.isnan(got).sum())}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB), "
+              f"{n_bytes / ms / 1e9:.3f} TB/s moved")
+        if name == "config 9b call 1":  # the main path's first call goes in the JSON line
+            results["batched_interp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del xp, fp, q, got
+    return results
+
+
+def quantile_grid(rng, n_cells, side, n_fit, n_pred, y_too=True):
+    """x (fit), y (fit) and x (predict) daily float32 grids as
+    bench.py:619-626, (time, lat, lon) with about 5% NaN cells."""
+    import pandas as pd
+
+    from skdownscale_tpu_torch.xlite import DataArray
+
+    idx = pd.date_range("1990-01-01", periods=n_fit, freq="D")
+    idx_p = pd.date_range("2050-01-01", periods=n_pred, freq="D")
+    nan_cells = rng.random(n_cells) < NAN_CELL_SHARE
+    dims = ("time", "lat", "lon")
+
+    def grid(index, loc, sd):
+        seas = (10.0 * np.sin(2 * np.pi * (index.dayofyear.to_numpy() - 1) / 365.25)).astype(np.float32)
+        a = rng.standard_normal((len(index), n_cells), dtype=np.float32)
+        a *= sd
+        a += (loc + seas)[:, None]
+        a[:, nan_cells] = np.nan
+        coords = {"time": index, "lat": np.arange(side), "lon": np.arange(side)}
+        return DataArray(a.reshape(len(index), side, side), dims, coords)
+
+    X = grid(idx, 283.0 + 1.5, 2.0)
+    Y = grid(idx, 282.0, 1.8) if y_too else None
+    Xq = grid(idx_p, 283.6, 2.0)
+    return X, Y, Xq, nan_cells
+
+
+def check_against_cpu(label, got, X, Y, Xq, nan_cells, make_model, apply, rng, n_ref):
+    """NaN cells stay NaN, valid cells finite, and ``n_ref`` valid cells agree
+    with the port's CPU float64 path within the stated tolerance."""
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.xlite import DataArray
+
+    T = got.shape[0]
+    got = got.reshape(T, -1)
+    _check(np.isnan(got[:, nan_cells]).all(), f"{label}: a NaN cell came out with values")
+    _check(np.isfinite(got[:, ~nan_cells]).all(), f"{label}: a valid cell came out with NaN or inf")
+    valid = np.nonzero(~nan_cells)[0]
+    ids = np.sort(rng.choice(valid, min(n_ref, valid.size), replace=False))
+    n_ref = ids.size
+
+    def cells(A):
+        if A is None:
+            return None
+        v = A.values.reshape(A.values.shape[0], -1)[:, ids].astype(np.float64)
+        return DataArray(v, ("time", "cell"), {"time": A.coords["time"], "cell": np.arange(n_ref)})
+
+    ref_model = sdt.PointWiseDownscaler(make_model(), device="cpu")
+    ref_model.fit(cells(X), *([cells(Y)] if Y is not None else []))
+    ref = getattr(ref_model, apply)(cells(Xq)).values.reshape(T, n_ref)
+    d = np.abs(got[:, ids].astype(np.float64) - ref).ravel()
+    p999, dmax, share = float(np.quantile(d, 0.999)), float(d.max()), float(np.mean(d > 1e-3))
+    lim_p999, lim_share, lim_max = TOL_Q
+    print(f"{label}: {n_ref} cells vs CPU float64: max |diff| {dmax:.6g} K, p99.9 {p999:.6g} K, "
+          f"p99 {float(np.quantile(d, 0.99)):.6g} K, share above 1e-3 K {share:.6g} "
+          f"(limits p99.9 <= {lim_p999:g}, share <= {lim_share:g}, max <= {lim_max:g})")
+    _check(p999 <= lim_p999 and share <= lim_share and dmax <= lim_max,
+           f"{label}: the GPU output is outside the stated tolerance of the CPU float64 path")
+
+
+def run_registry_grid(label, make_model, X, Y, Xq, nan_cells, apply, card, dev, rng, n_ref):
+    """Warm-up and one timed ``PointWiseDownscaler`` fit + ``apply``
+    (predict or transform) on the card, with the launch counts set to 0
+    just before the timed run and read just after; then the CPU float64
+    check, wall, cells/s, peak memory and the stages.  Returns the
+    launches."""
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+
+    C = nan_cells.size
+
+    def run():
+        m = sdt.PointWiseDownscaler(make_model(), device=dev)
+        m.fit(X, *([Y] if Y is not None else []))
+        return getattr(m, apply)(Xq)
+
+    run()  # warm-up: CUDA context, cached tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    got = np.asarray(out.values)
+    del out
+    check_against_cpu(label, got, X, Y, Xq, nan_cells, make_model, apply, rng, n_ref)
+    print(f"{label}: PointWiseDownscaler fit ({X.values.shape[0]} steps) + {apply} "
+          f"({Xq.values.shape[0]} steps) on {C} cells: wall {wall:.4f} s, {C / wall:.1f} cells/s "
+          f"(host pack, copies and unpack included); peak device memory {peak / 2**30:.3f} GiB; "
+          f"launches {launches}; card {card}")
+    stages = registry_stages(X, Y, Xq, dev, make_model, apply)
+    print(f"{label}: stages of one fit + {apply} (ms, host clock, synchronised): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f"; card {card}")
+    return launches
+
+
+def registry_stages(X, Y, Xq, dev, make_model, apply):
+    """The runner's steps one by one for a registry model (no host planning):
+    packing, copies, the fit and apply stages and the unpack; then the device
+    time of the fit and apply cores by CUDA events and the apply core's
+    largest kernels by ``torch.profiler``."""
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.models import batched
+    from skdownscale_tpu_torch.utils import native
+
+    m = sdt.PointWiseDownscaler(make_model(), device=dev)
+    est = m._model
+    t = {}
+    lap = lapper(t)
+    packs = [lap("pack grid", lambda A=A: m._pack(m._to_feature_x(A))) if A is not None else None
+             for A in (X, Y, Xq)]
+    ids = lap("cell mask", lambda: np.nonzero(native.valid_mask(packs[0]["flat"][0, 0]))[0].astype(np.int32))
+    hosts = [lap("compact cells", lambda p=p: native.pack_compact(p["flat"], ids)) if p is not None else None
+             for p in packs]
+    xd, yd, xqd = [lap("host to device", lambda h=h: torch.from_numpy(h).to(dev)) if h is not None else None
+                   for h in hosts]
+    yd = yd[:, :, 0] if yd is not None else None
+    idx, idx_p = packs[0]["index"], packs[2]["index"]
+
+    def fit_core():
+        return batched.batched_fit(est, idx, xd, yd)
+
+    state = lap("fit", fit_core)
+
+    def apply_core():
+        if apply == "predict":
+            return batched.batched_predict(est, state, idx, xqd, idx_p)
+        return batched.batched_transform(est, state, idx, xqd, idx_p, apply)
+
+    out = lap(apply, apply_core)
+    host = lap("device to host", lambda: out.cpu().numpy())
+    lap("scatter cells", lambda: native.unpack_scatter(host.reshape(len(ids), -1, 1), ids, packs[2]["n_cells"]))
+    t["fit device"] = cuda_ms(fit_core, iters=5, warmup=1)
+    t[f"{apply} device"] = cuda_ms(apply_core, iters=5, warmup=1)
+    print_top_kernels(apply, apply_core)
+    return t
+
+
+def k2_rows_time(X, nan_cells, dev):
+    """K2 with one segment per row at config 9a's shape (valid cells x 730),
+    on that phase's own predict series, against its plain version."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import rank_map as K
+
+    x = X.values.reshape(X.values.shape[0], -1)[:, ~nan_cells]
+    q = torch.from_numpy(np.ascontiguousarray(x.T)).to(dev)
+    res = torch.sort(q, dim=1).values.contiguous()
+    L = q.shape[1]
+    got = K.rank_map_segments(q, res, L)
+    torch.cuda.synchronize()
+    err = bitwise_err(got, K.rank_map_segments_plain(q, res, L), f"K2 rows L={L}")
+    ms = cuda_ms(lambda: K.rank_map_segments(q, res, L), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: K.rank_map_segments_plain(q, res, L), iters=10, warmup=2)
+    b_ms, b_by = bound(12 * q.numel(), q.numel() * np.log2(L))
+    return q.shape[0], L, err, ms, plain_ms, b_ms, b_by
+
+
+def config3_phase(rng, card, dev):
+    """QDM at 16,384 cells: fit over 3,650 days, predict 3,650 days (the
+    identity branch) and 1,825 days (host bracket tables).  No kernel runs."""
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+
+    X, Y, Xq, nan_cells = quantile_grid(rng, E_CELLS, E_SIDE, E_FIT, E_PRED)
+
+    def make():
+        return sdt.EquidistantCdfMatcher(kind="difference", extrapolate="both")
+
+    for name, Q in (("equal length (identity branch)", X), ("1,825 days (bracket tables)", Xq)):
+        def run(Q=Q):
+            m = sdt.PointWiseDownscaler(make(), device=dev)
+            return m.fit(X, Y).predict(Q)
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = run()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check_against_cpu(f"config 3 {name}", np.asarray(out.values), X, Y, Q, nan_cells, make,
+                          "predict", rng, 256)
+        print(f"config 3 {name}: PointWiseDownscaler fit ({E_FIT} days) + predict "
+              f"({Q.values.shape[0]} days) on {E_CELLS} cells: wall {wall:.4f} s, "
+              f"{E_CELLS / wall:.1f} cells/s; peak device memory {peak / 2**30:.3f} GiB; "
+              f"kernel launches {launches} (none expected); card {card}")
+
 
 
 def main() -> int:
@@ -524,6 +883,30 @@ def main() -> int:
             ("slide_sorted_windows", "rank_map_segments"),
         )
         launches["slide_sorted_windows"] = daily["slide_sorted_windows"]
+        del X, Y
+
+        kernels.update(interp_kernel_phase(dev))
+        X, Y, Xq, nan_cells = quantile_grid(rng, Q_CELLS, Q_SIDE, Q_FIT, Q_PRED)
+        print(f"config 9b: fit {Q_FIT} days, predict {Q_PRED} days, {Q_CELLS} cells float32, "
+              f"{int(nan_cells.sum())} NaN cells")
+        q9b = run_registry_grid(
+            "config 9b",
+            lambda: sdt.TrendAwareQuantileMappingRegressor(
+                sdt.QuantileMappingReressor(extrapolate="both")),
+            X, Y, Xq, nan_cells, "predict", card, dev, rng, D_REF_CELLS,
+        )
+        _check(q9b.get("batched_interp", 0) >= 2,
+               f"config 9b: K6 launched {q9b.get('batched_interp', 0)} times, not twice per predict")
+        launches["batched_interp"] = q9b["batched_interp"]
+        q9a = run_registry_grid("config 9a", lambda: sdt.QuantileMapper(detrend=True),
+                                X, None, Xq, nan_cells, "transform", card, dev, rng, D_REF_CELLS)
+        _check(q9a.get("rank_map_segments", 0) >= 1, f"config 9a: K2 was not launched: {q9a}")
+        rows, L, err, ms, plain_ms, b_ms, b_by = k2_rows_time(Xq, nan_cells, dev)
+        print(f"kernel rank_map_segments config 9a rows ({rows} x {L}, one segment a row): bitwise "
+              f"equal to plain, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); card {card}")
+        del X, Y, Xq
+        config3_phase(rng, card, dev)
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

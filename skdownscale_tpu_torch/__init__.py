@@ -3,10 +3,17 @@
 A port of the JAX package ``skdownscale_tpu`` that keeps its sklearn-style
 API.  This package imports torch and never jax.  Ported so far: BCSD
 (``BcsdTemperature``, ``BcsdPrecipitation``), monthly and daily
-(``time_grouper="daily_nasa-nex"``), dense and streaming, through
+(``time_grouper="daily_nasa-nex"``), dense and streaming, and the
+quantile-mapping family (``CunnaneTransformer``, ``QuantileMapper``,
+``QuantileMappingReressor``, ``EquidistantCdfMatcher``,
+``TrendAwareQuantileMappingRegressor``, ``LinearTrendTransformer``), through
 ``PointWiseDownscaler`` and the single-cell API, with hand-written CUDA
-kernels for its segment count-sort, rank-map and sliding sorted window
-(``kernels/``, sources in ``csrc/``).
+kernels for the segment count-sort, rank-map, sliding sorted window and
+batched table interpolation (``kernels/``, sources in ``csrc/``).
+
+The single-cell API runs on the card unless the caller sets
+``SingleCellEstimator.single_cell_device = torch.device("cpu")``
+(``models/base.py``); ``PointWiseDownscaler`` takes its ``device``.
 
 Float32 matrix products run in full float32: the JAX package ran them at
 ``Precision.HIGHEST`` (``bcsd.py:209-214``), so TF32 is switched off here.
@@ -20,6 +27,14 @@ torch.backends.cudnn.allow_tf32 = False
 from . import xlite  # noqa: E402
 from .models.bcsd import BcsdPrecipitation, BcsdTemperature  # noqa: E402
 from .models.groupers import DAY_GROUPER, MONTH_GROUPER, PaddedDOYGrouper  # noqa: E402
+from .models.quantile import (  # noqa: E402
+    CunnaneTransformer,
+    EquidistantCdfMatcher,
+    QuantileMapper,
+    QuantileMappingReressor,
+    TrendAwareQuantileMappingRegressor,
+)
+from .models.trend import LinearTrendTransformer  # noqa: E402
 from .pointwise import PointWiseDownscaler  # noqa: E402
 
 __all__ = [
@@ -29,5 +44,11 @@ __all__ = [
     "DAY_GROUPER",
     "MONTH_GROUPER",
     "PaddedDOYGrouper",
+    "CunnaneTransformer",
+    "EquidistantCdfMatcher",
+    "QuantileMapper",
+    "QuantileMappingReressor",
+    "TrendAwareQuantileMappingRegressor",
+    "LinearTrendTransformer",
     "xlite",
 ]

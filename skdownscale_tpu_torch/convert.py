@@ -1,4 +1,4 @@
-"""Carry fitted BCSD state between the JAX package and the port.
+"""Carry fitted state between the JAX package and the port.
 
 The JAX package's single-cell wrapper keeps its fitted state as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, state)``, ``bcsd.py:704``);
@@ -7,7 +7,9 @@ three fields ``(pp, vals, aux)`` in the same flat layout; its lazy
 (streaming) state is a ``BcsdLazyState`` ``(y, aux)``.  These helpers move
 either state into the port's :class:`~.models.bcsd.BcsdState` /
 :class:`~.models.bcsd.BcsdLazyState` and back, so a state fitted by one
-package can be used by the other's predict.
+package can be used by the other's predict.  The quantile family's states
+(``QmState``, ``QmrState``, ``TrendState``) are named tuples of arrays with
+the same fields in both packages and move the same way.
 """
 
 from __future__ import annotations
@@ -16,36 +18,60 @@ import numpy as np
 import torch
 
 from .models.bcsd import BcsdLazyState, BcsdState
+from .models.quantile import QmrState, QmState
+from .models.trend import TrendState
 
 __all__ = [
     "bcsd_state_from_jax",
     "bcsd_state_to_numpy",
     "bcsd_lazy_state_from_jax",
     "bcsd_lazy_state_to_numpy",
+    "qm_state_from_jax",
+    "qm_state_to_numpy",
+    "qmr_state_from_jax",
+    "qmr_state_to_numpy",
+    "trend_state_from_jax",
+    "state_to_numpy",
 ]
+
+
+def _tensors(arrays, device, dtype):
+    dev = torch.device(device)
+    return (torch.tensor(np.asarray(a), dtype=dtype, device=dev) for a in arrays)
+
+
+def state_to_numpy(state):
+    """Any fitted state of the port (a named tuple of tensors) -> a tuple of
+    numpy arrays in its field order."""
+    return tuple(t.detach().cpu().numpy() for t in state)
+
+
+bcsd_state_to_numpy = bcsd_lazy_state_to_numpy = state_to_numpy
+qm_state_to_numpy = qmr_state_to_numpy = state_to_numpy
 
 
 def bcsd_state_from_jax(pp, vals, aux, device="cpu", dtype=None) -> BcsdState:
     """Numpy ``(pp, vals, aux)`` -> the port's ``BcsdState`` on ``device``
     (in ``dtype``, default the arrays' own)."""
-    dev = torch.device(device)
-    return BcsdState(
-        *(torch.tensor(np.asarray(a), dtype=dtype, device=dev) for a in (pp, vals, aux))
-    )
-
-
-def bcsd_state_to_numpy(state: BcsdState):
-    """The port's ``BcsdState`` -> numpy ``(pp, vals, aux)``."""
-    return tuple(t.detach().cpu().numpy() for t in state)
+    return BcsdState(*_tensors((pp, vals, aux), device, dtype))
 
 
 def bcsd_lazy_state_from_jax(y, aux, device="cpu", dtype=None) -> BcsdLazyState:
     """Numpy ``(y, aux)`` of a JAX ``BcsdLazyState`` -> the port's
     ``BcsdLazyState`` on ``device`` (in ``dtype``, default the arrays' own)."""
-    dev = torch.device(device)
-    return BcsdLazyState(*(torch.tensor(np.asarray(a), dtype=dtype, device=dev) for a in (y, aux)))
+    return BcsdLazyState(*_tensors((y, aux), device, dtype))
 
 
-def bcsd_lazy_state_to_numpy(state: BcsdLazyState):
-    """The port's ``BcsdLazyState`` -> numpy ``(y, aux)``."""
-    return tuple(t.detach().cpu().numpy() for t in state)
+def qm_state_from_jax(cdf_pp, cdf_vals, trend_slope, trend_intercept, device="cpu", dtype=None) -> QmState:
+    """Numpy fields of a JAX ``QmState`` -> the port's ``QmState`` on ``device``."""
+    return QmState(*_tensors((cdf_pp, cdf_vals, trend_slope, trend_intercept), device, dtype))
+
+
+def qmr_state_from_jax(x_pp, x_vals, y_pp, y_vals, device="cpu", dtype=None) -> QmrState:
+    """Numpy fields of a JAX ``QmrState`` -> the port's ``QmrState`` on ``device``."""
+    return QmrState(*_tensors((x_pp, x_vals, y_pp, y_vals), device, dtype))
+
+
+def trend_state_from_jax(slope, intercept, device="cpu", dtype=None) -> TrendState:
+    """Numpy fields of a JAX ``TrendState`` -> the port's ``TrendState`` on ``device``."""
+    return TrendState(*_tensors((slope, intercept), device, dtype))

@@ -7,6 +7,11 @@ DatetimeIndexes are preserved, missing indexes are fabricated with a
 warning, ``n_features_in_`` is tracked, and fitted state lives in
 trailing-underscore attributes listed in ``_fit_attributes`` (clone-safe:
 ``__init__`` only stores params).
+
+The single-cell API runs on :attr:`SingleCellEstimator.single_cell_device`,
+the card unless the caller asks for the CPU, in float32 there (as the JAX
+package runs it on its chip with x64 off) and in float64 on the CPU.
+Without a card, and without that request, it raises.
 """
 
 from __future__ import annotations
@@ -14,8 +19,15 @@ from __future__ import annotations
 import warnings
 
 import numpy as np
+import torch
 
-__all__ = ["NotFittedError", "SingleCellEstimator", "asarray_2d", "get_index"]
+__all__ = [
+    "NotFittedError",
+    "SingleCellEstimator",
+    "SingleCellTransformer",
+    "asarray_2d",
+    "get_index",
+]
 
 
 try:  # subclass sklearn's so `except sklearn.exceptions.NotFittedError` works
@@ -93,6 +105,29 @@ class SingleCellEstimator:
     _fit_attributes: list = []
     _timestep = "MS"
 
+    #: device of the single-cell API (a grid's device is the runner's):
+    #: the card, unless the caller sets
+    #: ``SingleCellEstimator.single_cell_device = torch.device("cpu")``
+    single_cell_device = torch.device("cuda")
+
+    def _cell_device(self) -> torch.device:
+        dev = torch.device(self.single_cell_device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__} runs its single-cell fit/predict on the card "
+                "(single_cell_device = 'cuda'), and torch.cuda.is_available() is False; "
+                "to run on the CPU in float64 set "
+                "SingleCellEstimator.single_cell_device = torch.device('cpu')"
+            )
+        return dev
+
+    def _cell_tensor(self, a) -> torch.Tensor:
+        """A host array on the single-cell device: float32 on the card,
+        float64 on the CPU."""
+        dev = self._cell_device()
+        dtype = torch.float32 if dev.type == "cuda" else torch.float64
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
     @classmethod
     def _get_param_names(cls):
         import inspect
@@ -135,7 +170,7 @@ class SingleCellEstimator:
                 f"expecting {self.n_features_in_} features as input."
             )
 
-    def _validate_data(self, X, y=None, reset: bool = True):
+    def _validate_data(self, X, y=None, reset: bool = True, max_features: int | None = None):
         """Validate and coerce X (and y).  Pandas objects pass through with
         their index; raw arrays pass through as-is (callers use
         :func:`asarray_2d` for numerics).  Mirrors
@@ -160,6 +195,11 @@ class SingleCellEstimator:
                 "single sample."
             )
         self._check_n_features(arr, reset=reset)
+        if max_features is not None and arr.shape[1] > max_features:
+            raise ValueError(
+                f"{type(self).__name__} only supports {max_features} feature(s), "
+                f"found {arr.shape[1]}"
+            )
         if y is None:
             return X
         if not _is_pandas(y) and getattr(np.asarray(y), "ndim", 1) == 2:
@@ -179,12 +219,13 @@ class SingleCellEstimator:
         # NaN is allowed in X (ocean/missing cells) but not in y
         if np.isnan(yarr).any():
             raise ValueError("Input y contains NaN.")
-        if len(yarr) != len(arr):
+        mismatch_ok = getattr(self, "_allow_length_mismatch", False)
+        if len(yarr) != len(arr) and not mismatch_ok:
             raise ValueError(
                 f"Found input variables with inconsistent numbers of samples: "
                 f"[{len(arr)}, {len(yarr)}]"
             )
-        if _is_pandas(X) and _is_pandas(y):
+        if _is_pandas(X) and _is_pandas(y) and not mismatch_ok:
             if not np.array_equal(np.asarray(X.index), np.asarray(y.index)):
                 raise ValueError("X and y must share an identical index")
         return X, y
@@ -198,3 +239,19 @@ class SingleCellEstimator:
         ss_res = float(((yt[v] - pred[v]) ** 2).sum())
         ss_tot = float(((yt[v] - yt[v].mean()) ** 2).sum())
         return 1.0 - ss_res / ss_tot if ss_tot > 0 else 0.0
+
+
+class _NoScore:
+    """Descriptor hiding the inherited regressor ``score`` on transformers
+    (``hasattr(transformer, "score")`` must be False for sklearn checks and
+    Pipeline semantics)."""
+
+    def __get__(self, obj, objtype=None):
+        raise AttributeError("transformers do not implement score()")
+
+
+class SingleCellTransformer(SingleCellEstimator):
+    score = _NoScore()
+
+    def fit_transform(self, X, y=None, **kwargs):
+        return self.fit(X, y, **kwargs).transform(X) if y is not None else self.fit(X).transform(X)

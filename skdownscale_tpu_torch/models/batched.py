@@ -1,11 +1,12 @@
 """Batched execution registry: ``(cells, time)`` implementations by
 estimator type.
 
-Port of ``skdownscale_tpu/models/batched.py`` with its BCSD entry.  Where
-the reference runs one Python estimator object per grid cell
-(``pointwise_models/core.py:86-96``), an estimator registered here fits and
-predicts every cell of a ``(cells, time)`` tensor at once; its fitted state
-is a tuple of ``(cells, ...)`` tensors on the grid's device.
+Port of ``skdownscale_tpu/models/batched.py`` with its BCSD, trend and
+quantile-family entries.  Where the reference runs one Python estimator
+object per grid cell (``pointwise_models/core.py:86-96``), an estimator
+registered here fits, predicts and transforms every cell of a
+``(cells, time)`` tensor at once; its fitted state is a tuple (or dict) of
+``(cells, ...)`` tensors on the grid's device.
 
 The BCSD entry takes the streaming formulation (lazy fit, group-chunked
 predict) for the daily flavor at every cell count and for the monthly
@@ -17,7 +18,11 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import torch
+
 from . import bcsd as _bcsd
+from . import quantile as _q
+from . import trend as _t
 
 __all__ = [
     "STREAMING_CELL_THRESHOLD",
@@ -26,14 +31,17 @@ __all__ = [
     "supports_batched",
     "batched_fit",
     "batched_predict",
+    "batched_transform",
     "batched_attrs",
 ]
 
 
 class _Impl(NamedTuple):
     fit: Callable  # (model, index_fit, X (C,T,F), y (C,T)|None) -> state
-    predict: Callable  # (model, state, index_fit, X, index) -> (C,T)
-    attrs: Callable  # (model, state) -> dict[str, np.ndarray (C,...)]
+    predict: Callable | None  # (model, state, index_fit, X, index) -> (C,T)
+    transform: Callable | None  # (model, state, index_fit, X, index, direction) -> (C,T)
+    attrs: Callable | None  # (model, state) -> dict[str, np.ndarray (C,...)]
+    accepts: Callable | None = None  # (model) -> bool: this instance batchable?
 
 
 _REGISTRY: dict[type, _Impl] = {}
@@ -53,7 +61,8 @@ def _lookup(model) -> _Impl | None:
 
 
 def supports_batched(model) -> bool:
-    return _lookup(model) is not None
+    impl = _lookup(model)
+    return impl is not None and (impl.accepts is None or impl.accepts(model))
 
 
 def batched_fit(model, index_fit, X, y):
@@ -64,8 +73,15 @@ def batched_predict(model, state, index_fit, X, index):
     return _lookup(model).predict(model, state, index_fit, X, index)
 
 
+def batched_transform(model, state, index_fit, X, index, direction="transform"):
+    return _lookup(model).transform(model, state, index_fit, X, index, direction)
+
+
 def batched_attrs(model, state) -> dict:
-    return _lookup(model).attrs(model, state)
+    impl = _lookup(model)
+    if impl is None or impl.attrs is None:
+        return {}
+    return impl.attrs(model, state)
 
 
 def _single(X):
@@ -73,6 +89,158 @@ def _single(X):
     if X.shape[-1] != 1:
         raise ValueError(f"this model supports 1 feature, found {X.shape[-1]}")
     return X[..., 0]
+
+
+# ----------------------------------------------------------------------
+# LinearTrendTransformer
+# ----------------------------------------------------------------------
+
+
+def _trend_fit(model, index_fit, X, y):
+    # (C, T, F) -> per (cell, feature) slope/intercept
+    return _t.trend_fit(torch.movedim(X, 1, -1))  # (C, F, T) -> state (C, F)
+
+
+def _trend_transform(model, state, index_fit, X, index, direction):
+    line = torch.movedim(_t.trend_line(state, X.shape[1], X.dtype), -1, 1)  # (C, T, F)
+    return _single(X - line) if direction == "transform" else _single(X + line)
+
+
+register(
+    _t.LinearTrendTransformer,
+    _Impl(
+        _trend_fit,
+        None,
+        _trend_transform,
+        lambda model, state: {
+            "slope_": state.slope.cpu().numpy(),
+            "intercept_": state.intercept.cpu().numpy(),
+        },
+    ),
+)
+
+
+# ----------------------------------------------------------------------
+# QuantileMapper
+# ----------------------------------------------------------------------
+
+
+def _qm_fit(model, index_fit, X, y):
+    p = model._qt_params()
+    return _q.qm_fit(_single(X), detrend=bool(model.detrend), alpha=p["alpha"], beta=p["beta"])
+
+
+def _qm_transform(model, state, index_fit, X, index, direction):
+    if direction != "transform":
+        raise NotImplementedError("QuantileMapper has no inverse_transform in the reference")
+    p = model._qt_params()
+    return _q.qm_transform(state, _single(X), detrend=bool(model.detrend), **p)
+
+
+register(_q.QuantileMapper, _Impl(_qm_fit, None, _qm_transform, None))
+
+
+# ----------------------------------------------------------------------
+# CunnaneTransformer
+# ----------------------------------------------------------------------
+
+
+def _cunnane_fit(model, index_fit, X, y):
+    return _q.cunnane_fit(_single(X), model.alpha, model.beta)
+
+
+def _cunnane_transform(model, state, index_fit, X, index, direction):
+    fn = _q.cunnane_transform if direction == "transform" else _q.cunnane_inverse
+    return fn(state, _single(X), model.extrapolate, model.n_endpoints)
+
+
+register(_q.CunnaneTransformer, _Impl(_cunnane_fit, None, _cunnane_transform, None))
+
+
+# ----------------------------------------------------------------------
+# QuantileMappingReressor / EquidistantCdfMatcher
+# ----------------------------------------------------------------------
+
+
+def _qmr_fit(model, index_fit, X, y):
+    return _q.qmr_fit(_single(X), y, extrapolate=model.extrapolate, n_endpoints=model.n_endpoints)
+
+
+def _qmr_predict(model, state, index_fit, X, index):
+    return _q.qmr_predict(
+        state, _single(X), extrapolate=model.extrapolate, n_endpoints=model.n_endpoints
+    )
+
+
+register(_q.QuantileMappingReressor, _Impl(_qmr_fit, _qmr_predict, None, None))
+
+
+def _edcdfm_predict(model, state, index_fit, X, index):
+    return _q.edcdfm_predict(
+        state,
+        _single(X),
+        kind=model.kind,
+        extrapolate=model.extrapolate,
+        n_endpoints=model.n_endpoints,
+        max_ratio=model.max_ratio,
+    )
+
+
+register(_q.EquidistantCdfMatcher, _Impl(_qmr_fit, _edcdfm_predict, None, None))
+
+
+# ----------------------------------------------------------------------
+# TrendAwareQuantileMappingRegressor
+# ----------------------------------------------------------------------
+
+
+def _ta_trend_opts(model):
+    """(fit_intercept, positive) of the model's LinearTrendTransformer."""
+    return _t.LinearTrendTransformer._lr_options(model.trend_transformer)
+
+
+def _ta_accepts(model):
+    """The batched path requires a plain ``LinearTrendTransformer`` (with
+    supported ``lr_kwargs``) and a batchable inner qm_estimator.  The JAX
+    package runs anything else through its per-cell loop, which the port
+    does not have yet: such a model raises on a grid (its single-cell API
+    takes it)."""
+    tt = model.trend_transformer
+    if type(tt) is not _t.LinearTrendTransformer:
+        return False
+    try:
+        _ta_trend_opts(model)
+    except ValueError:
+        return False
+    return supports_batched(model.qm_estimator)
+
+
+def _ta_fit(model, index_fit, X, y):
+    x = _single(X)
+    fit_intercept, positive = _ta_trend_opts(model)
+    x_tr = _t.trend_fit_opts(x, fit_intercept, positive)
+    y_tr = _t.trend_fit_opts(y, fit_intercept, positive)
+    x_det = x - _t.trend_line(x_tr, x.shape[1], x.dtype)
+    y_det = y - _t.trend_line(y_tr, y.shape[1], y.dtype)
+    inner = batched_fit(model.qm_estimator, index_fit, x_det[..., None], y_det)
+    return {"inner": inner, "x_mean": x.mean(dim=1), "y_mean": y.mean(dim=1)}
+
+
+def _ta_predict(model, state, index_fit, X, index):
+    x = _single(X)
+    fit_intercept, positive = _ta_trend_opts(model)
+    tr = _t.trend_fit_opts(x, fit_intercept, positive)
+    line = _t.trend_line(tr, x.shape[1], x.dtype)
+    x_det = x - line
+    y_hat = batched_predict(model.qm_estimator, state["inner"], index_fit, x_det[..., None], index)
+    delta = (x.mean(dim=1) - state["x_mean"]) + state["y_mean"]
+    trendline = line - line.mean(dim=1, keepdim=True)
+    return y_hat + trendline + delta[:, None]
+
+
+register(
+    _q.TrendAwareQuantileMappingRegressor, _Impl(_ta_fit, _ta_predict, None, None, _ta_accepts)
+)
 
 
 # ----------------------------------------------------------------------
@@ -132,4 +300,4 @@ def _bcsd_attrs(model, state):
     return {"y_climo_": climo.cpu().numpy()}
 
 
-register(_bcsd.BcsdBase, _Impl(_bcsd_fit, _bcsd_predict, _bcsd_attrs))
+register(_bcsd.BcsdBase, _Impl(_bcsd_fit, _bcsd_predict, None, _bcsd_attrs))

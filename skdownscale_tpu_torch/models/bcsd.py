@@ -21,9 +21,7 @@ Grouping semantics preserved:
   (``bcsd.py:90-92`` / ``181-183``).
 
 The 9-point centered climate-trend rolling mean (``bcsd.py:246-250``) runs
-within the ``climate_trend`` groups.  Not ported yet: ``quantile_mappers_``
-raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 7, needs
-``models/quantile.py``).
+within the ``climate_trend`` groups.
 """
 
 from __future__ import annotations
@@ -65,12 +63,6 @@ __all__ = [
     "MONTH_GROUPER",
     "DAY_GROUPER",
 ]
-
-_MAPPERS_TODO = (
-    "quantile_mappers_ is not ported to PyTorch yet (ROADMAP.md Queue 1 item 7: "
-    "models/quantile.py); the fitted CDFs are in the estimator's state"
-)
-
 
 # ----------------------------------------------------------------------
 # host-side grouping resolution
@@ -457,16 +449,14 @@ class BcsdBase(SingleCellEstimator):
     """Shared plumbing for the BCSD wrappers (API of ``bcsd.py:14-93``).
 
     The constructor takes the JAX package's parameters.  The single-cell
-    ``fit``/``predict`` run on :attr:`single_cell_device` (the CPU, in
-    float64); grids go through
+    ``fit``/``predict`` run on ``single_cell_device`` (see
+    :class:`~.base.SingleCellEstimator`: the card unless the caller asks for
+    the CPU); grids go through
     :class:`~skdownscale_tpu_torch.pointwise.PointWiseDownscaler`, which takes
     the device explicitly.
     """
 
-    #: device of the single-cell API; a grid's device is the runner's
-    single_cell_device = torch.device("cpu")
-
-    _fit_attributes = ["y_climo_"]
+    _fit_attributes = ["y_climo_", "quantile_mappers_"]
     _timestep = "MS"  # frequency of the index made up for input without one
     _with_x_climo = True
 
@@ -508,10 +498,6 @@ class BcsdBase(SingleCellEstimator):
             "n_endpoints": qt.get("n_endpoints", 10),
         }
 
-    @property
-    def quantile_mappers_(self):
-        raise NotImplementedError(_MAPPERS_TODO)
-
     # -- host-side group resolution ------------------------------------
     def _fit_groups(self, index) -> PaddedGroups:
         if self._timestep_kind == "daily":
@@ -550,10 +536,9 @@ class BcsdBase(SingleCellEstimator):
         index = self._pandas_index(X, len(Xa))
         fg = self._fit_groups(index)
         p = self._qm_params()
-        dev = self.single_cell_device
         state = bcsd_fit(
-            torch.tensor(Xa[:, 0], device=dev),
-            torch.tensor(ya[:, 0], device=dev),
+            self._cell_tensor(Xa[:, 0]),
+            self._cell_tensor(ya[:, 0]),
             fg,
             with_x_climo=self._with_x_climo,
             alpha=p["alpha"],
@@ -570,6 +555,25 @@ class BcsdBase(SingleCellEstimator):
         self._fit_groups_ = fg
         self._fit_index_ = index
         self.y_climo_ = y_climo
+        # per-group mappers (reference: dict of fitted QuantileMapper
+        # objects, bcsd.py:59-67), holding copies of the fitted CDFs
+        from ..ops.cdf import Cdf
+        from .quantile import CunnaneTransformer, QuantileMapper
+
+        self.quantile_mappers_ = {}
+        vals2 = state.vals.cpu().numpy().reshape(G, L)
+        pp2 = state.pp.cpu().numpy().reshape(G, L)
+        for g, key in enumerate(np.asarray(fg.keys).tolist()):
+            c = int(fg.counts[g])
+            mapper = QuantileMapper(**dict(self.qm_kwargs or {}))
+            qt = CunnaneTransformer(
+                alpha=p["alpha"], beta=p["beta"],
+                extrapolate=p["extrapolate"], n_endpoints=p["n_endpoints"],
+            )
+            qt.cdf_ = Cdf(pp2[g, :c].copy(), vals2[g, :c].copy())
+            mapper.x_cdf_fit_ = qt
+            mapper._state = None  # CDF copies only; fitted by the batched core
+            self.quantile_mappers_[key] = mapper
         return self
 
     def predict(self, X):
@@ -582,7 +586,7 @@ class BcsdBase(SingleCellEstimator):
         p = self._qm_params()
         out = bcsd_predict(
             self._state,
-            torch.tensor(Xa[:, 0], device=self.single_cell_device),
+            self._cell_tensor(Xa[:, 0]),
             plan,
             variable="temperature" if self._with_x_climo else "precipitation",
             return_anoms=bool(self.return_anoms),

@@ -1,6 +1,7 @@
 """Closed-form simple regression over the last axis.
 
-Port of ``ols_1d`` in ``skdownscale_tpu/ops/regression.py``: the reference
+Port of ``ols_1d`` and ``ols_predict_1d`` in
+``skdownscale_tpu/ops/regression.py``: the reference
 fits one scikit-learn ``LinearRegression`` per group tail; here every
 (cell, group) problem is one row of a batched closed form.
 """
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ols_1d"]
+__all__ = ["ols_1d", "ols_predict_1d"]
 
 
 def ols_1d(x, y, w=None):
@@ -44,3 +45,7 @@ def ols_1d(x, y, w=None):
     slope = torch.where(nonzero, num / torch.where(nonzero, den, torch.ones_like(den)), torch.zeros_like(num))
     intercept = ym - slope * xm
     return slope, intercept
+
+
+def ols_predict_1d(slope, intercept, x):
+    return intercept + slope * x

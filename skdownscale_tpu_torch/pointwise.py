@@ -66,7 +66,11 @@ class PointWiseDownscaler:
     ----------
     model : estimator
         An estimator of this package with a batched implementation
-        (``BcsdTemperature``, ``BcsdPrecipitation``).
+        (``BcsdTemperature``, ``BcsdPrecipitation``, ``LinearTrendTransformer``,
+        ``CunnaneTransformer``, ``QuantileMapper``, ``QuantileMappingReressor``,
+        ``EquidistantCdfMatcher``, ``TrendAwareQuantileMappingRegressor``).
+        ``predict`` and ``transform`` may take a time axis of another length
+        than ``fit`` where the model allows it (the quantile regressors).
     dim : str
         Time dimension name (default ``'time'``).
     device : str or torch.device
@@ -215,10 +219,23 @@ class PointWiseDownscaler:
         feature_dim = kwargs.pop("feature_dim", DEFAULT_FEATURE_DIM)
         Xf = self._to_feature_x(X, feature_dim)
         px = self._pack(Xf)
-        T, C = px["T"], px["n_cells"]
+        T = px["T"]
+        unpacked = self._run_chunks(
+            px, lambda st, xd: _b.batched_predict(self._model, st, self._fit_index, xd, px["index"])
+        )  # (T, 1, C)
+        data = unpacked[:, 0].reshape(T, *px["spatial_shape"])
+        dims = (self._dim, *px["spatial_dims"])
+        coords = dict(px["coords"])
+        coords.pop(feature_dim, None)
+        return _dataarray_type(X if is_dataarray(X) else Xf)(data, dims, coords)
 
+    def _run_chunks(self, px, run):
+        """``run(state, x)`` on every chunk of ``px``'s fitted cells
+        (double-buffered host feed), unpacked to a (T, 1, C) host grid with
+        NaN in the cells the fit dropped."""
+        T, C = px["T"], px["n_cells"]
         outs = [
-            _b.batched_predict(self._model, st, self._fit_index, xd, px["index"]).cpu().numpy()
+            run(st, xd).cpu().numpy()
             for st, xd in zip(
                 self._state,
                 prefetched(self._state_plan, lambda ids: self._to_device(px["flat"], ids)),
@@ -228,16 +245,36 @@ class PointWiseDownscaler:
             out_v = outs[0]  # one chunk: no full-size host copy
         else:
             out_v = np.concatenate(outs, axis=0) if outs else np.zeros((0, T), px["flat"].dtype)
-
         nv = len(self._cell_ids)
-        unpacked = _native.unpack_scatter(
+        return _native.unpack_scatter(
             out_v.reshape(nv, T, 1).astype(px["flat"].dtype, copy=False), self._cell_ids, C
+        )
+
+    # ------------------------------------------------------------------
+    # transform / inverse_transform
+    # ------------------------------------------------------------------
+    def transform(self, X, **kwargs):
+        return self._transform(X, "transform", **kwargs)
+
+    def inverse_transform(self, X, **kwargs):
+        return self._transform(X, "inverse_transform", **kwargs)
+
+    def _transform(self, X, direction, **kwargs):
+        if self._state is None:
+            raise ValueError("PointWiseDownscaler is not fitted; call fit first")
+        feature_dim = kwargs.pop("feature_dim", DEFAULT_FEATURE_DIM)
+        Xf = self._to_feature_x(X, feature_dim)
+        px = self._pack(Xf)
+        unpacked = self._run_chunks(
+            px,
+            lambda st, xd: _b.batched_transform(
+                self._model, st, self._fit_index, xd, px["index"], direction
+            ),
         )  # (T, 1, C)
-        data = unpacked[:, 0].reshape(T, *px["spatial_shape"])
-        dims = (self._dim, *px["spatial_dims"])
-        coords = dict(px["coords"])
-        coords.pop(feature_dim, None)
-        return _dataarray_type(X if is_dataarray(X) else Xf)(data, dims, coords)
+        dims = Xf.dims
+        return _dataarray_type(X if is_dataarray(X) else Xf)(
+            unpacked.reshape([Xf.sizes[d] for d in dims]), dims, dict(px["coords"])
+        )
 
     # ------------------------------------------------------------------
     # fitted-attribute access

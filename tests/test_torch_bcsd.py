@@ -31,9 +31,17 @@ import skdownscale_tpu_torch.models.grouped as pg
 import skdownscale_tpu_torch.ops.regression as preg
 import skdownscale_tpu_torch.ops.rolling as pr
 from skdownscale_tpu_torch.convert import bcsd_state_from_jax, bcsd_state_to_numpy
+from skdownscale_tpu_torch.models.base import SingleCellEstimator
 from skdownscale_tpu_torch.xlite import DataArray as PDA
 
 ATOL = 1e-10
+
+
+@pytest.fixture(autouse=True)
+def single_cell_on_cpu(monkeypatch):
+    """The single-cell API runs on the card by default; these tests ask for
+    the CPU (float64)."""
+    monkeypatch.setattr(SingleCellEstimator, "single_cell_device", torch.device("cpu"))
 
 
 def _t(a):
@@ -245,9 +253,16 @@ def test_unported_parts_raise_naming_the_roadmap(rng):
     dY = pd.DataFrame({"t": 282 + rng.normal(0, 2, 800)}, index=didx)
     daily = pb.BcsdTemperature(time_grouper="daily_nasa-nex", return_anoms=False).fit(dX, dY)
     assert np.isfinite(daily.predict(dX).to_numpy()).all()
+    # the per-group mappers are ported: copies of the fitted CDFs, as the
+    # JAX package's
     m = pb.BcsdTemperature().fit(X, Y)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.quantile_mappers_
+    jm = jb.BcsdTemperature().fit(X, Y)
+    assert sorted(m.quantile_mappers_) == sorted(jm.quantile_mappers_)
+    for key, mapper in m.quantile_mappers_.items():
+        want = jm.quantile_mappers_[key].x_cdf_fit_.cdf_
+        npt.assert_array_equal(mapper.x_cdf_fit_.cdf_.pp, want.pp)
+        npt.assert_array_equal(mapper.x_cdf_fit_.cdf_.vals, want.vals)
+        assert type(mapper).__name__ == "QuantileMapper"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.PointWiseDownscaler(object.__new__(type("Est", (), {"fit": None})), device="cpu").fit(
             PDA(x.T, ("time", "point"), {"time": idx}), PDA(y.T, ("time", "point"), {"time": idx})

@@ -217,3 +217,138 @@ def test_monthly_streaming_on_cuda_matches_dense(cuda_device, rng):
         assert K.LAUNCHES[name] >= n0.get(name, 0) + 4, name  # once per chunk
     d = (got.double() - dense.double()).abs().cpu().numpy()
     assert np.quantile(d, 0.999) <= 1e-3 and d.max() <= 5.0
+
+
+# ----------------------------------------------------------------------
+# K6 and the quantile family
+# ----------------------------------------------------------------------
+
+
+def _interp_case(rng, B, L, Q, pad=True, sentinels=False, nan_rows=False):
+    """float32 monotone tables with ties, +inf pads, +-1e20 sentinels and NaN
+    knot rows; queries with knot hits, both ends, NaN and +-inf."""
+    xp = np.sort(np.round(rng.normal(0, 5, (B, L)) * 2) / 2, axis=1)
+    fp = np.maximum.accumulate(np.cumsum(rng.uniform(0, 1, (B, L)), axis=1), axis=1)
+    if sentinels:
+        xp[:, 0], xp[:, -1] = -1e20, 1e20
+        fp[:, 0], fp[:, -1] = fp[:, 1] - 3e22, fp[:, -2] + 3e22
+    if pad:
+        n_valid = rng.integers(max(2, L // 2), L + 1, B)
+        valid = np.arange(L)[None, :] < n_valid[:, None]
+        xp = np.where(valid, xp, np.inf)
+        fp = np.where(valid, fp, np.take_along_axis(fp, (n_valid - 1)[:, None], axis=1))
+    if nan_rows:
+        xp[1::13, L // 3] = np.nan
+        fp[2::13, L // 2] = np.nan
+    fin = np.where(np.isfinite(xp), xp, np.nan)
+    lo, hi = np.nanmin(fin, axis=1)[:, None], np.nanmax(fin, axis=1)[:, None]
+    q = rng.uniform(lo - 3, hi + 3, (B, Q))
+    knots = np.take_along_axis(xp, rng.integers(0, L, (B, Q)), axis=1)
+    q = np.where((rng.random((B, Q)) < 0.2) & np.isfinite(knots), knots, q)
+    q[:, 0], q[:, 1] = lo[:, 0] - 10, hi[:, 0] + 10
+    q[::5, 2], q[::7, 3], q[::11, 4] = np.nan, np.inf, -np.inf
+    return [np.ascontiguousarray(a, dtype=np.float32) for a in (xp, fp, q)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,L,Q,kw",
+    [(512, 42, 40, {}), (300, 1462, 732, {"sentinels": True, "pad": False}),
+     (256, 1462, 732, {"nan_rows": True}), (64, 7307, 3654, {"sentinels": True}),
+     (1000, 3, 300, {})],
+)
+@pytest.mark.parametrize("shared", [None, "xp", "fp", "q"])
+def test_interp_kernel_bitwise_vs_plain(cuda_device, rng, B, L, Q, kw, shared):
+    from skdownscale_tpu_torch.kernels import interp as I
+
+    xp, fp, q = _interp_case(rng, B, L, Q, **kw)
+    args = {"xp": xp, "fp": fp, "q": q}
+    if shared:
+        args[shared] = args[shared][:1]
+    t = [torch.from_numpy(args[k]).to(cuda_device) for k in ("xp", "fp", "q")]
+    n0 = I.LAUNCHES["batched_interp"]
+    got = I.batched_interp(*t)
+    torch.cuda.synchronize()
+    assert I.LAUNCHES["batched_interp"] == n0 + 1
+    want = I.batched_interp_plain(*t)
+    assert got.shape == (B, Q)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_interp_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from skdownscale_tpu_torch.kernels import interp as I
+
+    x = torch.zeros((4, 10), device=cuda_device)
+    with pytest.raises(TypeError):
+        I.batched_interp(x.double(), x.double(), x.double())
+    with pytest.raises(ValueError):  # tensors on two devices
+        I.batched_interp(x.cpu(), x, x)
+    with pytest.raises(ValueError):  # not contiguous
+        I.batched_interp(x[:, ::2], x[:, ::2], x)
+    with pytest.raises(ValueError):  # row counts that do not broadcast
+        I.batched_interp(x, x, torch.zeros((3, 10), device=cuda_device))
+
+
+def _config9_grid(rng, C, T_fit=1460, T_pred=730):
+    idx = pd.date_range("1990-01-01", periods=T_fit, freq="D")
+    idx_p = pd.date_range("2050-01-01", periods=T_pred, freq="D")
+    seas = 10.0 * np.sin(2 * np.pi * (idx.dayofyear.to_numpy() - 1) / 365.25)
+    seas_p = 10.0 * np.sin(2 * np.pi * (idx_p.dayofyear.to_numpy() - 1) / 365.25)
+    x = (283.0 + seas[:, None] + rng.normal(0, 2, (T_fit, C)) + 1.5).astype(np.float32)
+    y = (282.0 + seas[:, None] + rng.normal(0, 1.8, (T_fit, C))).astype(np.float32)
+    xq = (283.6 + seas_p[:, None] + rng.normal(0, 2, (T_pred, C))).astype(np.float32)
+    for a in (x, y, xq):
+        a[:, [0, 7, 100]] = np.nan
+    dims = ("time", "cell")
+    return dims, {"time": idx, "cell": np.arange(C)}, {"time": idx_p, "cell": np.arange(C)}, x, y, xq
+
+
+@pytest.mark.cuda
+def test_config9b_pointwise_on_cuda_matches_cpu_float64(cuda_device, rng):
+    """TrendAware(QMR(extrapolate="both")) on the card against the port's
+    float64 CPU path; K6 runs twice per predict chunk.  Detrending in
+    float32 perturbs a series by about its float32 spacing at ~283 K, which
+    the piecewise-linear map can move by up to one y-CDF step where two x
+    knots nearly tie: 99.9% within 2e-3 K, at most 0.5% above 1e-3 K, none
+    above 5 K (chip_smoke.py's quantile tolerance)."""
+    dims, c_fit, c_pred, x, y, xq = _config9_grid(rng, 384)
+
+    def run(device, a, b, q):
+        m = P.PointWiseDownscaler(
+            P.TrendAwareQuantileMappingRegressor(P.QuantileMappingReressor(extrapolate="both")),
+            device=device, cell_chunk_size=200,
+        )
+        m.fit(DataArray(a, dims, c_fit), DataArray(b, dims, c_fit))
+        return m.predict(DataArray(q, dims, c_pred)).values
+
+    got = run(cuda_device, x, y, xq)  # warm-up builds the kernel
+    n0 = K.LAUNCHES["batched_interp"]
+    got = run(cuda_device, x, y, xq)
+    assert K.LAUNCHES["batched_interp"] - n0 >= 2 * 2  # two per predict, two chunks
+    want = run("cpu", x.astype(np.float64), y.astype(np.float64), xq.astype(np.float64))
+    assert got.dtype == np.float32 and got.shape == (730, 384)
+    npt.assert_array_equal(np.isnan(got), np.isnan(want))
+    d = np.abs(got.astype(np.float64) - want)[~np.isnan(want)]
+    assert np.quantile(d, 0.999) <= 2e-3
+    assert np.mean(d > 1e-3) <= 5e-3 and d.max() <= 5.0
+
+
+@pytest.mark.cuda
+def test_quantile_mapper_grid_launches_k2_and_single_cell_runs_on_the_card(cuda_device, rng):
+    dims, c_fit, c_pred, x, _, xq = _config9_grid(rng, 128)
+    n0 = K.LAUNCHES["rank_map_segments"]
+    m = P.PointWiseDownscaler(P.QuantileMapper(detrend=True), device=cuda_device)
+    got = m.fit(DataArray(x, dims, c_fit)).transform(DataArray(xq, dims, c_pred)).values
+    assert K.LAUNCHES["rank_map_segments"] > n0
+    want = P.PointWiseDownscaler(P.QuantileMapper(detrend=True), device="cpu").fit(
+        DataArray(x.astype(np.float64), dims, c_fit)
+    ).transform(DataArray(xq.astype(np.float64), dims, c_pred)).values
+    d = np.abs(got.astype(np.float64) - want)[~np.isnan(want)]
+    assert np.quantile(d, 0.999) <= 2e-3 and d.max() <= 5.0
+    # the single-cell API defaults to the card, in float32
+    n0 = K.LAUNCHES["batched_interp"]
+    qmr = P.QuantileMappingReressor(extrapolate="both").fit(x[:, 1:2], y=x[:, 2])
+    assert qmr._X_cdf.vals.dtype == np.float32
+    assert np.isfinite(qmr.predict(xq[:, 1:2])).all()
+    assert K.LAUNCHES["batched_interp"] >= n0 + 2

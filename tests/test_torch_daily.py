@@ -36,10 +36,18 @@ import skdownscale_tpu_torch.models.bcsd as pb
 import skdownscale_tpu_torch.models.streaming as pst
 import skdownscale_tpu_torch.utils.timeindex as pt
 from skdownscale_tpu_torch.convert import bcsd_lazy_state_from_jax, bcsd_lazy_state_to_numpy
+from skdownscale_tpu_torch.models.base import SingleCellEstimator
 from skdownscale_tpu_torch.xlite import DataArray as PDA
 
 ATOL = 1e-10
 DAILY = "daily_nasa-nex"
+
+
+@pytest.fixture(autouse=True)
+def single_cell_on_cpu(monkeypatch):
+    """The single-cell API runs on the card by default; these tests ask for
+    the CPU (float64)."""
+    monkeypatch.setattr(SingleCellEstimator, "single_cell_device", torch.device("cpu"))
 
 
 def _t(a):

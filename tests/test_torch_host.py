@@ -37,15 +37,43 @@ def _groups_equal(a, b):
 
 
 def test_import_has_no_jax():
+    """Every submodule of the port imports, and none of them pulls in jax or
+    the JAX package."""
     code = (
-        "import sys, skdownscale_tpu_torch\n"
+        "import importlib, pkgutil, sys, skdownscale_tpu_torch as P\n"
+        "names = [m.name for m in pkgutil.walk_packages(P.__path__, 'skdownscale_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'skdownscale_tpu' or m.startswith('skdownscale_tpu.')]\n"
-        "print(bad)\n"
-        "raise SystemExit(1 if bad else 0)\n"
+        "print(len(names), bad)\n"
+        "raise SystemExit(1 if bad or len(names) < 25 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_single_cell_device_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """The single-cell API runs on the card unless the caller asks for the
+    CPU; without a card it raises, saying how to ask, and never continues on
+    the CPU."""
+    import torch
+
+    import skdownscale_tpu_torch as P
+    from skdownscale_tpu_torch.models.base import SingleCellEstimator
+
+    assert SingleCellEstimator.single_cell_device == torch.device("cuda")
+    X = pd.DataFrame({"t": np.linspace(280.0, 290.0, 60)},
+                     index=pd.date_range("1990-01-01", periods=60, freq="MS"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for est, args in ((P.BcsdTemperature(), (X, X)), (P.QuantileMappingReressor(), (X, X)),
+                      (P.QuantileMapper(), (X,)), (P.LinearTrendTransformer(), (X,))):
+        assert est._cell_device  # shared by every wrapper
+        with pytest.raises(RuntimeError, match="single_cell_device = torch.device\\('cpu'\\)"):
+            est.fit(*args)
+    monkeypatch.setattr(SingleCellEstimator, "single_cell_device", torch.device("cpu"))
+    got = P.QuantileMappingReressor().fit(X, X)._X_cdf.vals
+    assert got.dtype == np.float64
 
 
 _INDEXES = {

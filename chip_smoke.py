@@ -53,7 +53,23 @@ with a non-zero exit at the first failure, it:
 11. config 3: ``EquidistantCdfMatcher(kind="difference", extrapolate="both")``
     on 16,384 cells fit over 3,650 days, predicting 3,650 days (the
     equal-length identity branch) and 1,825 days (host bracket tables); no
-    kernel runs there.
+    kernel runs there;
+12. holds the fused GARD kernels against their plain versions at config 4's
+    shape (2,048 cells, 3,650 training days, 365 queries, k = 200, data as
+    bench.py:1059-1064): K7 for the four PureAnalog kinds with and without
+    a threshold (the exceedance probability and the best / sample analog
+    bitwise, the means and deviations within float32 reduction error), K8
+    at f = 1, 2, 3, 5 (the count row bitwise, the sums and the Newton
+    probability within float32 error), and times both;
+13. config 4a and 4b, this slice's main path: fits and predicts
+    ``PointWiseDownscaler(PureAnalog(n_analogs=200, kind="mean_analogs",
+    thresh=13.0))`` and ``(AnalogRegression(n_analogs=200, thresh=13.0))`` on
+    a two-variable daily Dataset of 2,048 cells (32 x 64, about 5% NaN
+    cells), fit over 3,650 days from 1990-01-01, predict over 365 days:
+    K7 / K8 launched, three outputs, NaN cells NaN, 128 cells against the
+    CPU float64 path, wall, cells/s, peak device memory and stages;
+14. ``PureRegression(thresh=13.0)`` on the same grid (no kernel: the
+    batched linear and logistic fits).
 
 The line before the last is a JSON object with each kernel's launches by
 its path, error, times, bound and the one PyTorch call that computes the
@@ -97,6 +113,23 @@ KERNEL_SHAPES = [(N_CELLS, 12, 40), (65_536, 1, 7), (65_536, 1, 31), (16_384, 1,
 Q_CELLS, Q_SIDE, Q_FIT, Q_PRED = 65_536, 256, 1_460, 730
 # config 3 (ROADMAP Queue 1 item 7): QDM, 16,384 cells, fit 10 y daily
 E_CELLS, E_SIDE, E_FIT, E_PRED = 16_384, 128, 3_650, 1_825
+# config 4 (bench.py:1050-1112): GARD, 2,048 cells, fit 10 y daily, 365
+# queries, k = 200, two predictors
+G_CELLS, G_LAT, G_LON, G_FIT, G_PRED, G_K, G_F = 2_048, 32, 64, 3_650, 365, 200, 2
+G_REF_CELLS = 128
+# GARD float32 on the card against the CPU float64 path, over the three
+# outputs.  Rounding alone moves a mean of 200 analogs near 15 by ~1e-6 and
+# AnalogRegression's float32 sufficient statistics and Newton steps its
+# outputs by ~1e-5.  A float32 near-tie at the k-th distance can swap one
+# analog for another: that moves pred by about dy/k (~0.01), the
+# probability by 1/k (0.005) or, for AnalogRegression, through its Newton
+# fit, and under the threshold can flip pred between 0 and ~15 and the
+# error between NaN and a number.  Such swaps need two distances within
+# ~1e-6 of each other at the boundary, a few queries in 10^4, so: the
+# 99.9th percentile of |diff| over values finite in both <= 1e-3, at most
+# 0.1% of them above 1e-3, at most 0.1% of values NaN in one and not the
+# other; no bound on the maximum.
+TOL_GARD = (1e-3, 1e-3, 1e-3)
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # bound of a kernel is the larger of its compulsory bytes over the memory
 # rate and its operations over the float32 (non-tensor-core) rate
@@ -123,6 +156,16 @@ KERNELS = {
         "route": "cuda",
         "source": "skdownscale_tpu_torch/csrc/interp.cu",
         "replaces": "skdownscale_tpu/ops/pallas/interp_kernel.py:92",
+    },
+    "pure_analog_stats": {
+        "route": "cuda",
+        "source": "skdownscale_tpu_torch/csrc/knn.cu",
+        "replaces": "skdownscale_tpu/ops/pallas/knn_kernel.py:269",
+    },
+    "analog_regression_stats": {
+        "route": "cuda",
+        "source": "skdownscale_tpu_torch/csrc/knn.cu",
+        "replaces": "skdownscale_tpu/ops/pallas/knn_kernel.py:535",
     },
 }
 
@@ -833,6 +876,245 @@ def config3_phase(rng, card, dev):
               f"kernel launches {launches} (none expected); card {card}")
 
 
+def gard_arrays(rng, C, n, m, f):
+    """bench.py:1059-1064's GARD data as float32 arrays: X ~ N(10, 3),
+    y = 0.2 N(10, 3) + 13, queries ~ N(10, 3)."""
+    X = rng.standard_normal((C, n, f), dtype=np.float32) * 3.0 + 10.0
+    y = rng.standard_normal((C, n), dtype=np.float32) * 0.6 + 15.0
+    Xq = rng.standard_normal((C, m, f), dtype=np.float32) * 3.0 + 10.0
+    return X, y, Xq
+
+
+def k7_ops(C, n, m, f, k):
+    """float32 operations of K7 on these inputs: 3f - 1 a distance, and
+    about 4 a selected analog for the statistics."""
+    return C * m * (n * (3 * f - 1) + 4 * k)
+
+
+def k8_ops(C, n, m, f, k, newton_queries, n_iter=8):
+    """float32 operations of K8: the distances, 2 per statistic row a
+    selected analog, and for each query whose analogs are neither all above
+    nor all below the threshold (the kernel skips the others) n_iter Newton
+    passes over its k analogs."""
+    P = f + 1
+    rows = 1 + f + f * (f + 1) // 2 + 1 + f + 1
+    per_member = 2 * f + 7 + 2 * P + 3 * P * (P + 1) // 2
+    return C * m * (n * (3 * f - 1) + 2 * rows * k) + newton_queries * n_iter * k * per_member
+
+
+def within(got, want, rtol, atol, what):
+    """Max |got - want| over values finite in both; fails unless the NaN
+    positions agree and every value is within atol + rtol |want|."""
+    import torch
+
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    _check(torch.equal(nan_g, nan_w), f"{what}: NaN positions differ")
+    g, w = got[~nan_g].double(), want[~nan_w].double()
+    d = (g - w).abs()
+    _check(bool((d <= atol + rtol * w.abs()).all()),
+           f"{what}: kernel and plain version differ by {float(d.max())} (rtol {rtol}, atol {atol})")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def gard_kernel_phase(rng, dev):
+    """K7 and K8 against their plain versions at config 4's shape, and timed.
+    K7: every kind with and without the threshold (k = 1 for best analog,
+    as the model runs it); the exceedance probability and the best / sample
+    analog bitwise, mean, weighted mean and deviation within rtol 1e-5 +
+    atol 1e-5 (sums of 200 float32 terms in another order).  K8 at f = 1,
+    2, 3, 5 with the threshold of config 4b, and at f = 2 without one and
+    with thresh = 15.0 (half the analogs exceed, so every query runs the
+    Newton fit): the count row bitwise, the other sums within rtol 1e-5 +
+    atol 1e-3 (up to 200 centred terms of |x| < 20), the probability within
+    5e-4 (the JAX package's own kernel-vs-gather tolerance)."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import knn as KN
+
+    C, n, m, k = G_CELLS, G_FIT, G_PRED, G_K
+    results = {}
+    X, y, Xq = (torch.from_numpy(a).to(dev) for a in gard_arrays(rng, C, n, m, G_F))
+    rand = torch.from_numpy(rng.integers(0, k, (C, m)).astype(np.int32)).to(dev)
+    for kind in KN.KINDS:
+        for thresh in (None, 13.0):
+            kk = 1 if kind == "best_analog" else k
+            args = (X, y, Xq, rand)
+            kw = dict(k=kk, kind=kind, thresh=thresh)
+            got = KN.pure_analog_stats(*args, **kw)
+            torch.cuda.synchronize()
+            want = KN.pure_analog_stats_plain(*args, **kw)
+            bitwise_err(got[..., 1].contiguous(), want[..., 1].contiguous(), f"K7 {kind} {thresh} prob")
+            if kind in ("best_analog", "sample_analogs"):
+                bitwise_err(got[..., 0].contiguous(), want[..., 0].contiguous(), f"K7 {kind} {thresh} pred")
+            err = within(got, want, 1e-5, 1e-5, f"K7 {kind} thresh={thresh}")
+            ms = cuda_ms(lambda: KN.pure_analog_stats(*args, **kw), iters=5, warmup=1)
+            plain_ms = cuda_ms(lambda: KN.pure_analog_stats_plain(*args, **kw), iters=2, warmup=1)
+            n_bytes = 4 * (X.numel() + y.numel() + Xq.numel() + rand.numel() + got.numel())
+            b_ms, b_by = bound(n_bytes, k7_ops(C, n, m, G_F, kk))
+            print(f"kernel pure_analog_stats {kind} thresh={thresh} ({C} cells, n={n}, m={m}, f={G_F}, "
+                  f"k={kk}): max |diff| {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}), {C * m / ms / 1e3:.3f} M queries/s")
+            if (kind, thresh) == ("mean_analogs", 13.0):  # config 4a goes in the JSON line
+                results["pure_analog_stats"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            del got, want
+    del X, y, Xq, rand
+    for f, thresh in ((1, 13.0), (2, 13.0), (3, 13.0), (5, 13.0), (2, None), (2, 15.0)):
+        X, y, Xq = (torch.from_numpy(a).to(dev) for a in gard_arrays(rng, C, n, m, f))
+        kw = dict(k=k, thresh=thresh)
+        stats, prob, _, _ = KN.analog_regression_stats(X, y, Xq, **kw)
+        torch.cuda.synchronize()
+        ws, wp, _, _ = KN.analog_regression_stats_plain(X, y, Xq, **kw)
+        bitwise_err(stats[..., 0].contiguous(), ws[..., 0].contiguous(), f"K8 f={f} {thresh} count")
+        err_s = within(stats, ws, 1e-5, 1e-3, f"K8 f={f} thresh={thresh} stats")
+        err_p = within(prob, wp, 0.0, 5e-4, f"K8 f={f} thresh={thresh} prob")
+        ms = cuda_ms(lambda: KN.analog_regression_stats(X, y, Xq, **kw), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: KN.analog_regression_stats_plain(X, y, Xq, **kw), iters=2, warmup=1)
+        count = stats[..., 0]
+        newton = int(((count > 0) & (count < k)).sum()) if thresh is not None else 0
+        n_bytes = 4 * (X.numel() + y.numel() + Xq.numel() + stats.numel() + prob.numel())
+        b_ms, b_by = bound(n_bytes, k8_ops(C, n, m, f, k, newton))
+        print(f"kernel analog_regression_stats f={f} thresh={thresh} ({C} cells, n={n}, m={m}, k={k}, "
+              f"{newton} queries with a Newton fit): max |diff| stats {err_s:.3g}, prob {err_p:.3g}, "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if (f, thresh) == (2, 13.0):  # config 4b goes in the JSON line
+            results["analog_regression_stats"] = {"max_abs_err": max(err_s, err_p), "ms": ms,
+                                                  "plain_ms": plain_ms, "bound_ms": b_ms,
+                                                  "bound_by": b_by, "library_ms": None}
+        del X, y, Xq, stats, prob, ws, wp
+    return results
+
+
+def gard_grid(rng):
+    """Config 4's grid as a two-variable daily Dataset: (time, lat, lon),
+    fit over 3,650 days from 1990-01-01, predict over 365 days, about 5% NaN
+    cells."""
+    import pandas as pd
+
+    from skdownscale_tpu_torch.xlite import DataArray, Dataset
+
+    idx = pd.date_range("1990-01-01", periods=G_FIT, freq="D")
+    idx_p = pd.date_range("2000-01-01", periods=G_PRED, freq="D")
+    nan_cells = rng.random(G_CELLS) < NAN_CELL_SHARE
+    dims = ("time", "lat", "lon")
+
+    def field(T, loc, sd):
+        a = rng.standard_normal((T, G_CELLS), dtype=np.float32) * sd + loc
+        a[:, nan_cells] = np.nan
+        return a.reshape(T, G_LAT, G_LON)
+
+    def coords(index):
+        return {"time": index, "lat": np.arange(G_LAT), "lon": np.arange(G_LON)}
+
+    X = Dataset({f"x{j}": DataArray(field(G_FIT, 10.0, 3.0), dims, coords(idx)) for j in range(G_F)})
+    Y = DataArray(field(G_FIT, 15.0, 0.6), dims, coords(idx))
+    Xq = Dataset({f"x{j}": DataArray(field(G_PRED, 10.0, 3.0), dims, coords(idx_p)) for j in range(G_F)})
+    return X, Y, Xq, nan_cells
+
+
+def gard_check_against_cpu(label, got, X, Y, Xq, nan_cells, make_model, rng):
+    """Three outputs (time, variable, cell); NaN cells NaN; in valid cells
+    NaN only where the model gives it (PureAnalog's error where an analog is
+    below the threshold, AnalogRegression's pred and error where none is
+    above); ``G_REF_CELLS`` valid cells against the port's CPU float64 path
+    within ``TOL_GARD``."""
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.xlite import DataArray, Dataset
+
+    T = got.shape[0]
+    _check(got.shape == (T, 3, G_LAT, G_LON), f"{label}: output shape {got.shape}")
+    got = got.reshape(T, 3, -1)
+    _check(np.isnan(got[:, :, nan_cells]).all(), f"{label}: a NaN cell came out with values")
+    valid = got[:, :, ~nan_cells]
+    _check(np.isfinite(valid[:, 1]).all(), f"{label}: an exceedance probability is not finite")
+    nan_ok = valid[:, 1] < 1.0 if label.startswith("config 4a") else valid[:, 1] == 0.0
+    for o in (0, 2):
+        bad = ~np.isfinite(valid[:, o]) & ~(np.isnan(valid[:, o]) & nan_ok)
+        _check(not bad.any(), f"{label}: output {o} not finite where the model gives a number")
+    ids = np.sort(rng.choice(np.nonzero(~nan_cells)[0], G_REF_CELLS, replace=False))
+
+    def cells(A):
+        def one(a):
+            v = a.values.reshape(a.values.shape[0], -1)[:, ids].astype(np.float64)
+            return DataArray(v, ("time", "cell"), {"time": a.coords["time"], "cell": np.arange(ids.size)})
+
+        return Dataset({k: one(a) for k, a in A.data_vars.items()}) if hasattr(A, "data_vars") else one(A)
+
+    ref = sdt.PointWiseDownscaler(make_model(), device="cpu").fit(cells(X), cells(Y)).predict(cells(Xq))
+    ref = ref.values
+    mine = got[:, :, ids].astype(np.float64)
+    nan_mismatch = float(np.mean(np.isnan(mine) != np.isnan(ref)))
+    both = ~np.isnan(mine) & ~np.isnan(ref)
+    d = np.abs(mine - ref)[both]
+    p999, share = float(np.quantile(d, 0.999)), float(np.mean(d > 1e-3))
+    per_output = ", ".join(
+        f"{name} max {float(np.abs(mine[:, o] - ref[:, o])[both[:, o]].max()):.6g}"
+        for o, name in enumerate(("pred", "exceedance_prob", "prediction_error"))
+    )
+    lim_p999, lim_share, lim_nan = TOL_GARD
+    print(f"{label}: {ids.size} cells vs CPU float64: p99.9 |diff| {p999:.6g}, share above 1e-3 "
+          f"{share:.6g}, NaN mismatches {nan_mismatch:.6g} ({per_output}; limits p99.9 <= {lim_p999:g}, "
+          f"share <= {lim_share:g}, NaN mismatches <= {lim_nan:g})")
+    _check(p999 <= lim_p999 and share <= lim_share and nan_mismatch <= lim_nan,
+           f"{label}: the GPU output is outside the stated tolerance of the CPU float64 path")
+
+
+def gard_grid_phase(label, make_model, kernel, X, Y, Xq, nan_cells, card, dev, rng):
+    """Warm-up and one timed ``PointWiseDownscaler`` fit + predict of the
+    GARD grid on the card, launches counted from 0 over the timed run; then
+    the CPU float64 check, wall, cells/s, peak memory and the stages.
+    Returns the launches."""
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+
+    def run():
+        return sdt.PointWiseDownscaler(make_model(), device=dev).fit(X, Y).predict(Xq)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if kernel is not None:
+        _check(launches.get(kernel, 0) >= 1, f"{label}: the path did not launch {kernel}: {launches}")
+    else:
+        _check(not launches, f"{label}: launched kernels {launches}, none expected")
+    _check(list(out.coords["variable"]) == ["pred", "exceedance_prob", "prediction_error"],
+           f"{label}: output coordinate {list(out.coords['variable'])}")
+    gard_check_against_cpu(label, np.asarray(out.values), X, Y, Xq, nan_cells, make_model, rng)
+    print(f"{label}: PointWiseDownscaler fit ({G_FIT} days) + predict ({G_PRED} days) on {G_CELLS} "
+          f"cells: wall {wall:.4f} s, {G_CELLS / wall:.1f} cells/s (host pack, copies and unpack "
+          f"included); peak device memory {peak / 2**30:.3f} GiB; launches {launches}; card {card}")
+    stages = registry_stages(X, Y, Xq, dev, make_model, "predict")
+    print(f"{label}: stages of one fit + predict (ms, host clock, synchronised): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f"; card {card}")
+    return launches
+
+
+def gard_phases(rng, card, dev):
+    """Configs 4a, 4b and PureRegression on config 4's grid.  Returns the
+    launches of 4a and 4b."""
+    import skdownscale_tpu_torch as sdt
+
+    X, Y, Xq, nan_cells = gard_grid(rng)
+    print(f"config 4: fit {G_FIT} days, predict {G_PRED} days, {G_CELLS} cells, {G_F} variables, "
+          f"float32, {int(nan_cells.sum())} NaN cells")
+    l4a = gard_grid_phase(
+        "config 4a", lambda: sdt.PureAnalog(n_analogs=G_K, kind="mean_analogs", thresh=13.0),
+        "pure_analog_stats", X, Y, Xq, nan_cells, card, dev, rng)
+    l4b = gard_grid_phase(
+        "config 4b", lambda: sdt.AnalogRegression(n_analogs=G_K, thresh=13.0),
+        "analog_regression_stats", X, Y, Xq, nan_cells, card, dev, rng)
+    gard_grid_phase("PureRegression", lambda: sdt.PureRegression(thresh=13.0), None,
+                    X, Y, Xq, nan_cells, card, dev, rng)
+    return l4a, l4b
+
 
 def main() -> int:
     import torch
@@ -907,6 +1189,11 @@ def main() -> int:
               f"({b_by}); card {card}")
         del X, Y, Xq
         config3_phase(rng, card, dev)
+
+        kernels.update(gard_kernel_phase(rng, dev))
+        l4a, l4b = gard_phases(rng, card, dev)
+        launches["pure_analog_stats"] = l4a["pure_analog_stats"]
+        launches["analog_regression_stats"] = l4b["analog_regression_stats"]
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

@@ -6,17 +6,20 @@ API.  This package imports torch and never jax.  Ported so far: BCSD
 (``time_grouper="daily_nasa-nex"``), dense and streaming, and the
 quantile-mapping family (``CunnaneTransformer``, ``QuantileMapper``,
 ``QuantileMappingReressor``, ``EquidistantCdfMatcher``,
-``TrendAwareQuantileMappingRegressor``, ``LinearTrendTransformer``), through
-``PointWiseDownscaler`` and the single-cell API, with hand-written CUDA
-kernels for the segment count-sort, rank-map, sliding sorted window and
-batched table interpolation (``kernels/``, sources in ``csrc/``).
+``TrendAwareQuantileMappingRegressor``, ``LinearTrendTransformer``) and
+the GARD analog family (``PureAnalog``, ``AnalogRegression``,
+``PureRegression``), through ``PointWiseDownscaler`` and the single-cell
+API, with hand-written CUDA kernels for the segment count-sort, rank-map,
+sliding sorted window, batched table interpolation and the fused analog
+selection and statistics (``kernels/``, sources in ``csrc/``).
 
 The single-cell API runs on the card unless the caller sets
 ``SingleCellEstimator.single_cell_device = torch.device("cpu")``
 (``models/base.py``); ``PointWiseDownscaler`` takes its ``device``.
 
 Float32 matrix products run in full float32: the JAX package ran them at
-``Precision.HIGHEST`` (``bcsd.py:209-214``), so TF32 is switched off here.
+``Precision.HIGHEST`` (``bcsd.py:209-214``, the kNN distances of
+``ops/knn.py``), so TF32 is switched off here.
 """
 
 import torch
@@ -26,6 +29,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from . import xlite  # noqa: E402
 from .models.bcsd import BcsdPrecipitation, BcsdTemperature  # noqa: E402
+from .models.gard import AnalogRegression, PureAnalog, PureRegression  # noqa: E402
 from .models.groupers import DAY_GROUPER, MONTH_GROUPER, PaddedDOYGrouper  # noqa: E402
 from .models.quantile import (  # noqa: E402
     CunnaneTransformer,
@@ -50,5 +54,8 @@ __all__ = [
     "QuantileMappingReressor",
     "TrendAwareQuantileMappingRegressor",
     "LinearTrendTransformer",
+    "PureAnalog",
+    "AnalogRegression",
+    "PureRegression",
     "xlite",
 ]

@@ -9,7 +9,9 @@ either state into the port's :class:`~.models.bcsd.BcsdState` /
 :class:`~.models.bcsd.BcsdLazyState` and back, so a state fitted by one
 package can be used by the other's predict.  The quantile family's states
 (``QmState``, ``QmrState``, ``TrendState``) are named tuples of arrays with
-the same fields in both packages and move the same way.
+the same fields in both packages and move the same way, as do the GARD
+family's ``GardState`` (the grid's training set) and
+``PureRegressionState``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.batched import GardState
 from .models.bcsd import BcsdLazyState, BcsdState
+from .models.gard import PureRegressionState
 from .models.quantile import QmrState, QmState
 from .models.trend import TrendState
 
@@ -31,6 +35,8 @@ __all__ = [
     "qmr_state_from_jax",
     "qmr_state_to_numpy",
     "trend_state_from_jax",
+    "gard_state_from_jax",
+    "pure_regression_state_from_jax",
     "state_to_numpy",
 ]
 
@@ -75,3 +81,19 @@ def qmr_state_from_jax(x_pp, x_vals, y_pp, y_vals, device="cpu", dtype=None) -> 
 def trend_state_from_jax(slope, intercept, device="cpu", dtype=None) -> TrendState:
     """Numpy fields of a JAX ``TrendState`` -> the port's ``TrendState`` on ``device``."""
     return TrendState(*_tensors((slope, intercept), device, dtype))
+
+
+def gard_state_from_jax(X_train, y_train, device="cpu", dtype=None) -> GardState:
+    """Numpy fields of a JAX ``GardState`` -> the port's ``GardState`` on ``device``."""
+    return GardState(*_tensors((X_train, y_train), device, dtype))
+
+
+def pure_regression_state_from_jax(
+    lin_coef, lin_intercept, log_coef, log_intercept, fit_error, has_logistic, device="cpu", dtype=None
+) -> PureRegressionState:
+    """Numpy fields of a JAX ``PureRegressionState`` -> the port's
+    ``PureRegressionState`` on ``device`` (``has_logistic`` stays bool)."""
+    floats = _tensors((lin_coef, lin_intercept, log_coef, log_intercept, fit_error), device, dtype)
+    return PureRegressionState(
+        *floats, torch.tensor(np.asarray(has_logistic), dtype=torch.bool, device=torch.device(device))
+    )

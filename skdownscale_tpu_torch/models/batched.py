@@ -1,8 +1,8 @@
 """Batched execution registry: ``(cells, time)`` implementations by
 estimator type.
 
-Port of ``skdownscale_tpu/models/batched.py`` with its BCSD, trend and
-quantile-family entries.  Where the reference runs one Python estimator
+Port of ``skdownscale_tpu/models/batched.py`` with its BCSD, trend,
+quantile-family and GARD entries.  Where the reference runs one Python estimator
 object per grid cell (``pointwise_models/core.py:86-96``), an estimator
 registered here fits, predicts and transforms every cell of a
 ``(cells, time)`` tensor at once; its fitted state is a tuple (or dict) of
@@ -18,9 +18,11 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from . import bcsd as _bcsd
+from . import gard as _gard
 from . import quantile as _q
 from . import trend as _t
 
@@ -33,12 +35,13 @@ __all__ = [
     "batched_predict",
     "batched_transform",
     "batched_attrs",
+    "GardState",
 ]
 
 
 class _Impl(NamedTuple):
     fit: Callable  # (model, index_fit, X (C,T,F), y (C,T)|None) -> state
-    predict: Callable | None  # (model, state, index_fit, X, index) -> (C,T)
+    predict: Callable | None  # (model, state, index_fit, X, index) -> (C,T[,O])
     transform: Callable | None  # (model, state, index_fit, X, index, direction) -> (C,T)
     attrs: Callable | None  # (model, state) -> dict[str, np.ndarray (C,...)]
     accepts: Callable | None = None  # (model) -> bool: this instance batchable?
@@ -301,3 +304,68 @@ def _bcsd_attrs(model, state):
 
 
 register(_bcsd.BcsdBase, _Impl(_bcsd_fit, _bcsd_predict, None, _bcsd_attrs))
+
+
+# ----------------------------------------------------------------------
+# GARD
+# ----------------------------------------------------------------------
+
+
+class GardState(NamedTuple):
+    X_train: torch.Tensor  # (C, T, F)
+    y_train: torch.Tensor  # (C, T)
+
+
+def _gard_fit(model, index_fit, X, y):
+    model._set_k(X.shape[1])
+    return GardState(X, y)
+
+
+def _gard_attrs(model, state):
+    return {"k_": np.full(state.y_train.shape[0], model.k_)}
+
+
+def _pure_analog_predict(model, state, index_fit, X, index):
+    k, kind = model._k_kind()
+    C, m = X.shape[0], X.shape[1]
+    if kind == "sample_analogs":
+        # a fresh generator per call, as the JAX entry: every chunk draws
+        # the same leading numbers
+        rand = np.random.default_rng(model.random_state).integers(0, k, (C, m))
+    else:
+        rand = np.zeros((C, m))
+    rand = torch.as_tensor(rand.astype(np.int32), device=X.device)
+    return _gard.pure_analog_predict_batched(
+        state.X_train, state.y_train, X, rand, k=k, kind=kind, thresh=model.thresh
+    )
+
+
+register(_gard.PureAnalog, _Impl(_gard_fit, _pure_analog_predict, None, _gard_attrs))
+
+
+def _analog_reg_predict(model, state, index_fit, X, index):
+    return _gard.analog_regression_predict_batched(
+        state.X_train, state.y_train, X, k=model.k_, thresh=model.thresh
+    )
+
+
+register(_gard.AnalogRegression, _Impl(_gard_fit, _analog_reg_predict, None, _gard_attrs))
+
+
+def _pure_reg_fit(model, index_fit, X, y):
+    return _gard.pure_regression_fit(X, y, thresh=model.thresh)
+
+
+def _pure_reg_predict(model, state, index_fit, X, index):
+    return _gard.pure_regression_predict(state, X)
+
+
+register(
+    _gard.PureRegression,
+    _Impl(
+        _pure_reg_fit,
+        _pure_reg_predict,
+        None,
+        lambda model, state: {"fit_error_": state.fit_error.cpu().numpy()},
+    ),
+)

@@ -68,9 +68,14 @@ class PointWiseDownscaler:
         An estimator of this package with a batched implementation
         (``BcsdTemperature``, ``BcsdPrecipitation``, ``LinearTrendTransformer``,
         ``CunnaneTransformer``, ``QuantileMapper``, ``QuantileMappingReressor``,
-        ``EquidistantCdfMatcher``, ``TrendAwareQuantileMappingRegressor``).
+        ``EquidistantCdfMatcher``, ``TrendAwareQuantileMappingRegressor``,
+        ``PureAnalog``, ``AnalogRegression``, ``PureRegression``).
         ``predict`` and ``transform`` may take a time axis of another length
-        than ``fit`` where the model allows it (the quantile regressors).
+        than ``fit`` where the model allows it (the quantile regressors and
+        the GARD family).  A model with several outputs (the GARD family's
+        ``pred``, ``exceedance_prob``, ``prediction_error``) predicts a
+        ``(time, variable, *spatial)`` array with the output names as the
+        ``variable`` coordinate.
     dim : str
         Time dimension name (default ``'time'``).
     device : str or torch.device
@@ -213,6 +218,14 @@ class PointWiseDownscaler:
     # ------------------------------------------------------------------
     # predict
     # ------------------------------------------------------------------
+    def _n_outputs(self):
+        """(n_outputs, output_names) of the model: 1 and None unless it
+        declares several (the GARD family's three columns)."""
+        try:
+            return self._model.n_outputs, list(self._model.output_names)
+        except AttributeError:
+            return 1, None
+
     def predict(self, X, **kwargs):
         if self._state is None:
             raise ValueError("PointWiseDownscaler is not fitted; call fit first")
@@ -220,19 +233,28 @@ class PointWiseDownscaler:
         Xf = self._to_feature_x(X, feature_dim)
         px = self._pack(Xf)
         T = px["T"]
+        n_outputs, output_names = self._n_outputs()
         unpacked = self._run_chunks(
-            px, lambda st, xd: _b.batched_predict(self._model, st, self._fit_index, xd, px["index"])
-        )  # (T, 1, C)
-        data = unpacked[:, 0].reshape(T, *px["spatial_shape"])
-        dims = (self._dim, *px["spatial_dims"])
+            px,
+            lambda st, xd: _b.batched_predict(self._model, st, self._fit_index, xd, px["index"]),
+            n_outputs,
+        )  # (T, n_outputs, C)
         coords = dict(px["coords"])
-        coords.pop(feature_dim, None)
+        if n_outputs == 1:
+            data = unpacked[:, 0].reshape(T, *px["spatial_shape"])
+            dims = (self._dim, *px["spatial_dims"])
+            coords.pop(feature_dim, None)
+        else:
+            data = unpacked.reshape(T, n_outputs, *px["spatial_shape"])
+            dims = (self._dim, feature_dim, *px["spatial_dims"])
+            coords[feature_dim] = output_names
         return _dataarray_type(X if is_dataarray(X) else Xf)(data, dims, coords)
 
-    def _run_chunks(self, px, run):
+    def _run_chunks(self, px, run, n_outputs=1):
         """``run(state, x)`` on every chunk of ``px``'s fitted cells
-        (double-buffered host feed), unpacked to a (T, 1, C) host grid with
-        NaN in the cells the fit dropped."""
+        (double-buffered host feed), each giving (cells, T) or (cells, T,
+        n_outputs), unpacked to a (T, n_outputs, C) host grid with NaN in the
+        cells the fit dropped."""
         T, C = px["T"], px["n_cells"]
         outs = [
             run(st, xd).cpu().numpy()
@@ -244,10 +266,10 @@ class PointWiseDownscaler:
         if len(outs) == 1:
             out_v = outs[0]  # one chunk: no full-size host copy
         else:
-            out_v = np.concatenate(outs, axis=0) if outs else np.zeros((0, T), px["flat"].dtype)
+            out_v = np.concatenate(outs, axis=0) if outs else np.zeros((0, T, n_outputs), px["flat"].dtype)
         nv = len(self._cell_ids)
         return _native.unpack_scatter(
-            out_v.reshape(nv, T, 1).astype(px["flat"].dtype, copy=False), self._cell_ids, C
+            out_v.reshape(nv, T, n_outputs).astype(px["flat"].dtype, copy=False), self._cell_ids, C
         )
 
     # ------------------------------------------------------------------

@@ -352,3 +352,192 @@ def test_quantile_mapper_grid_launches_k2_and_single_cell_runs_on_the_card(cuda_
     assert qmr._X_cdf.vals.dtype == np.float32
     assert np.isfinite(qmr.predict(xq[:, 1:2])).all()
     assert K.LAUNCHES["batched_interp"] >= n0 + 2
+
+
+# ----------------------------------------------------------------------
+# K7, K8 and the GARD family
+# ----------------------------------------------------------------------
+
+
+def _gard_case(rng, C, n, m, f, dup=False, on_train=False):
+    """float32 X ~ N(10, 3), y = 0.2 N(10, 3) + 13 (bench.py:1059-1064);
+    ``dup`` repeats every training row (exact distance ties), ``on_train``
+    puts every query on a training point (zero distances)."""
+    X = rng.normal(10, 3, (C, n, f)).astype(np.float32)
+    if dup:
+        X[:, n // 2 : 2 * (n // 2)] = X[:, : n // 2]
+    y = (0.2 * rng.normal(10, 3, (C, n)) + 13).astype(np.float32)
+    Xq = rng.normal(10, 3, (C, m, f)).astype(np.float32)
+    if on_train:
+        Xq = X[:, rng.integers(0, n, m)].copy()
+    return X, y, Xq
+
+
+# (C, n, m, f, k, dup, on_train): duplicated rows, queries on training
+# points, n not a multiple of 32, k = 1, k = n, f = 1 and 6, and a training
+# record whose distances do not fit in shared memory (recomputed per pass)
+_GARD_SHAPES = [
+    (3, 70, 23, 2, 20, False, False),
+    (2, 97, 41, 1, 1, True, True),
+    (2, 64, 33, 6, 64, True, False),
+    (2, 200, 37, 3, 200, False, True),
+    (4, 1001, 65, 2, 200, True, True),
+    (2, 3650, 9, 5, 4096 - 500, False, False),
+    (2, 60_000, 5, 2, 300, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,n,m,f,k,dup,on_train", _GARD_SHAPES)
+@pytest.mark.parametrize("thresh", [None, 15.0])
+def test_pure_analog_kernel_vs_plain(cuda_device, rng, C, n, m, f, k, dup, on_train, thresh):
+    """K7 on the card against its plain version: the exceedance probability
+    (a count over k) and the best / sample analog (the raw y of one member)
+    bitwise; mean, weighted mean and std within float32 reduction error
+    (rtol 1e-5: sums of k terms in another order)."""
+    from skdownscale_tpu_torch.kernels import knn as KN
+
+    X, y, Xq = (torch.from_numpy(a).to(cuda_device) for a in _gard_case(rng, C, n, m, f, dup, on_train))
+    rand = torch.from_numpy(rng.integers(0, k, (C, m)).astype(np.int32)).to(cuda_device)
+    for kind in KN.KINDS:
+        kk = 1 if kind == "best_analog" else k
+        n0 = KN.LAUNCHES["pure_analog_stats"]
+        got = KN.pure_analog_stats(X, y, Xq, rand, k=kk, kind=kind, thresh=thresh)
+        torch.cuda.synchronize()
+        assert KN.LAUNCHES["pure_analog_stats"] == n0 + 1
+        want = KN.pure_analog_stats_plain(X, y, Xq, rand, k=kk, kind=kind, thresh=thresh)
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        assert np.array_equal(got[..., 1].view(np.int32), want[..., 1].view(np.int32)), kind
+        if kind in ("best_analog", "sample_analogs"):
+            assert np.array_equal(got[..., 0].view(np.int32), want[..., 0].view(np.int32)), kind
+        npt.assert_array_equal(np.isnan(got), np.isnan(want))
+        npt.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,n,m,f,k,dup,on_train", [s for s in _GARD_SHAPES if s[3] <= 5])
+@pytest.mark.parametrize("thresh", [None, 15.0])
+def test_analog_regression_kernel_vs_plain(cuda_device, rng, C, n, m, f, k, dup, on_train, thresh):
+    """K8 on the card against its plain version: the count row bitwise, the
+    other sums within float32 reduction error (atol 1e-3 on sums of up to
+    4,096 centred terms of |x| < 20), the Newton probability within 5e-4
+    (the JAX package's kernel-vs-gather tolerance)."""
+    from skdownscale_tpu_torch.kernels import knn as KN
+
+    X, y, Xq = (torch.from_numpy(a).to(cuda_device) for a in _gard_case(rng, C, n, m, f, dup, on_train))
+    n0 = KN.LAUNCHES["analog_regression_stats"]
+    stats, prob, mu, ybar = KN.analog_regression_stats(X, y, Xq, k=k, thresh=thresh)
+    torch.cuda.synchronize()
+    assert KN.LAUNCHES["analog_regression_stats"] == n0 + 1
+    ws, wp, wmu, wybar = KN.analog_regression_stats_plain(X, y, Xq, k=k, thresh=thresh)
+    assert stats.shape == (C, m, KN.n_stat_rows(f)) and prob.shape == (C, m)
+    assert torch.equal(mu, wmu) and torch.equal(ybar, wybar)
+    assert torch.equal(stats[..., 0], ws[..., 0])
+    npt.assert_allclose(stats.cpu().numpy(), ws.cpu().numpy(), rtol=1e-5, atol=1e-3)
+    npt.assert_allclose(prob.cpu().numpy(), wp.cpu().numpy(), rtol=0, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_knn_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    from skdownscale_tpu_torch.kernels import knn as KN
+
+    X = torch.zeros((2, 50, 2), device=cuda_device)
+    y = torch.zeros((2, 50), device=cuda_device)
+    r = torch.zeros((2, 10), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):  # float64
+        KN.pure_analog_stats(X.double(), y.double(), X[:, :10].double(), r, k=5, kind="mean_analogs")
+    with pytest.raises(ValueError):  # seven features
+        KN.pure_analog_stats(torch.zeros((2, 50, 7), device=cuda_device), y,
+                             torch.zeros((2, 10, 7), device=cuda_device), r, k=5, kind="mean_analogs")
+    with pytest.raises(ValueError):  # six features for K8
+        KN.analog_regression_stats(torch.zeros((2, 50, 6), device=cuda_device), y,
+                                   torch.zeros((2, 10, 6), device=cuda_device), k=5)
+    with pytest.raises(ValueError):  # k above n
+        KN.analog_regression_stats(X, y, X[:, :10].contiguous(), k=51)
+    with pytest.raises(ValueError):  # not contiguous
+        KN.pure_analog_stats(X, y, X[:, ::5], r, k=5, kind="mean_analogs")
+    with pytest.raises(TypeError):  # int64 ranks
+        KN.pure_analog_stats(X, y, X[:, :10].contiguous(), r.long(), k=5, kind="sample_analogs")
+
+
+def _gard_grid(rng, C, T_fit=730, T_pred=365, f=2):
+    """A (time, cell) grid of f variables as a Dataset, with three NaN cells."""
+    from skdownscale_tpu_torch.xlite import Dataset
+
+    idx = pd.date_range("1990-01-01", periods=T_fit, freq="D")
+    idx_p = pd.date_range("2000-01-01", periods=T_pred, freq="D")
+    dims = ("time", "cell")
+    c_fit, c_pred = {"time": idx, "cell": np.arange(C)}, {"time": idx_p, "cell": np.arange(C)}
+
+    def ds(T, coords):
+        v = {f"v{j}": rng.normal(10, 3, (T, C)).astype(np.float32) for j in range(f)}
+        for a in v.values():
+            a[:, [0, 5, 17]] = np.nan
+        return v, coords
+
+    fit, pred = ds(T_fit, c_fit), ds(T_pred, c_pred)
+    y = (0.2 * rng.normal(10, 3, (T_fit, C)) + 13).astype(np.float32)
+    y[:, [0, 5, 17]] = np.nan
+
+    def make(dtype):
+        X = Dataset({k: DataArray(a.astype(dtype), dims, fit[1]) for k, a in fit[0].items()})
+        Xq = Dataset({k: DataArray(a.astype(dtype), dims, pred[1]) for k, a in pred[0].items()})
+        return X, DataArray(y.astype(dtype), dims, c_fit), Xq
+
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "model,kernel",
+    [
+        (lambda: P.PureAnalog(n_analogs=50, kind="mean_analogs", thresh=15.0), "pure_analog_stats"),
+        (lambda: P.PureAnalog(n_analogs=50, kind="sample_analogs", random_state=3), "pure_analog_stats"),
+        (lambda: P.AnalogRegression(n_analogs=50, thresh=15.0), "analog_regression_stats"),
+        (lambda: P.PureRegression(thresh=15.0), None),
+    ],
+)
+def test_gard_grid_on_cuda_launches_the_kernels_not_the_plain_versions(cuda_device, rng, monkeypatch, model, kernel):
+    """The grid route on CUDA float32 launches K7 / K8 (the plain versions
+    are made to raise), keeps NaN cells NaN and agrees with the port's CPU
+    float64 path: exceedance probabilities and sampled analogs exactly
+    where the same analogs are selected, so at most 1% of values may move
+    by a near-tie swap at the k-th boundary (Δy/k, 1/k, or a flip of pred
+    to 0 under the threshold); the bulk (99th percentile) within 1e-3."""
+    from skdownscale_tpu_torch.kernels import knn as KN
+
+    make = _gard_grid(rng, 96)
+    X, Y, Xq = make(np.float32)
+    for name in ("pure_analog_stats_plain", "analog_regression_stats_plain"):
+        monkeypatch.setattr(KN, name, lambda *a, **k: (_ for _ in ()).throw(AssertionError("plain version on CUDA")))
+    n0 = KN.LAUNCHES[kernel] if kernel else 0
+    got = P.PointWiseDownscaler(model(), device=cuda_device).fit(X, Y).predict(Xq)
+    if kernel:
+        assert KN.LAUNCHES[kernel] == n0 + 1
+    monkeypatch.undo()
+    X64, Y64, Xq64 = make(np.float64)
+    want = P.PointWiseDownscaler(model(), device="cpu").fit(X64, Y64).predict(Xq64)
+    assert got.dims == want.dims == ("time", "variable", "cell")
+    assert list(got.coords["variable"]) == ["pred", "exceedance_prob", "prediction_error"]
+    g, w = got.values.astype(np.float64), want.values
+    assert np.isnan(g[..., [0, 5, 17]]).all()
+    both = ~np.isnan(g) & ~np.isnan(w)
+    assert np.mean(np.isnan(g) != np.isnan(w)) <= 1e-2
+    d = np.abs(g - w)[both]
+    assert np.quantile(d, 0.99) <= 1e-3 and np.mean(d > 1e-3) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_gard_single_cell_runs_on_the_card(cuda_device, rng):
+    from skdownscale_tpu_torch.kernels import knn as KN
+
+    X = rng.normal(10, 3, (400, 2))
+    y = 0.2 * rng.normal(10, 3, 400) + 13
+    n0 = dict(KN.LAUNCHES)
+    pa = P.PureAnalog(n_analogs=30, kind="weight_analogs", thresh=15.0).fit(X, y)
+    ar = P.AnalogRegression(n_analogs=30, thresh=15.0).fit(X, y)
+    for est in (pa, ar, P.PureRegression(thresh=15.0).fit(X, y)):
+        out = est.predict(X[:50])
+        assert out.shape == (50, 3) and out.dtype == np.float32
+    assert KN.LAUNCHES["pure_analog_stats"] == n0.get("pure_analog_stats", 0) + 1
+    assert KN.LAUNCHES["analog_regression_stats"] == n0.get("analog_regression_stats", 0) + 1

@@ -30,7 +30,11 @@ with a non-zero exit at the first failure, it:
 6. config 5: the same for ``BcsdTemperature(time_grouper="daily_nasa-nex",
    return_anoms=False)`` on 32,768 cells x 7,305 days (the daily streaming
    path): K5 and K2 launched, 366 climatology rows, 512 cells against the
-   CPU float64 path, wall, cells/s, peak device memory and stages;
+   CPU float64 path, wall, cells/s, peak device memory and stages; then
+   the same grid with ``qm_kwargs={"detrend": True}``, whose
+   streaming predict sorts the raw 620-day windows with K9: fit+predict on
+   K9's route against the route without K9 (the plain version above K1's
+   256), alternating, outputs bitwise equal, walls and device times;
 7. runs ``bcsd_fit_lazy`` + ``bcsd_predict_streaming(group_chunk=3)`` on
    config 2's valid cells on the card (the monthly streaming path), checks
    that K1 and K2 were launched once per chunk and that the result agrees
@@ -41,7 +45,9 @@ with a non-zero exit at the first failure, it:
    the other the reverse), at a small table (42 knots, 40 queries) and at a
    20-year daily table (16,384 rows, 7,307 knots, 3,654 queries), on seeded
    inputs with ties, +inf pads, +-1e20 sentinels, NaN knot rows, knot hits
-   and NaN / +-inf queries, and times both;
+   and NaN / +-inf queries, and at config 8's fut block (6,144 rows, each
+   with its own 3,650 knots and values, 3,650 queries, taken from a
+   one-rotation ``mbcn_correct``), and times both;
 9. config 9b, this slice's main path: fits ``PointWiseDownscaler(
    TrendAwareQuantileMappingRegressor(QuantileMappingReressor(
    extrapolate="both")))`` over 1,460 days from 1990-01-01 and predicts 730
@@ -69,7 +75,28 @@ with a non-zero exit at the first failure, it:
     K7 / K8 launched, three outputs, NaN cells NaN, 128 cells against the
     CPU float64 path, wall, cells/s, peak device memory and stages;
 14. ``PureRegression(thresh=13.0)`` on the same grid (no kernel: the
-    batched linear and logistic fits).
+    batched linear and logistic fits);
+15. holds the row sort K9's three forms (``sort_rows``,
+    ``sort_rows_with_positions``, ``unsort_rows``) bitwise against their
+    plain versions, values and positions both, at config 8's rows (6,144 x
+    3,650), monthly MBCn rows (6,144 x 304), the dense daily BCSD fit's
+    windows (512 cells x 366 windows x 620) and adversarial rows (NaN
+    payloads including the bits 0x7fffffff, +-0, +-inf, heavy ties,
+    all-equal rows, L = 1, 7, 37 and K9_MAX_LEN), and times each form
+    beside its bound, its plain version and one ``torch.sort`` call;
+16. config 8, this slice's main path: ``mbcn_grid`` on three 3-variable
+    daily Datasets (obs, hist, fut; 3,650 days each; data as
+    bench.py:731-736) of 2,048 cells (32 x 64, about 5% NaN cells), 20
+    rotations: K9 launched 22 times per form and K6 once per rotation,
+    every output row a permutation of the card's own QDM margins, 128 cells
+    against the CPU float64 path (margins, then the output after 1, 3, 5,
+    10 and 20 rotations), two wrong paths (rotations rounded to bfloat16,
+    the last rotation dropped) shown to fall outside the limits, wall,
+    cells/s, peak memory and stages;
+17. config 8 monthly (``group="month"``) on the same grid: K9 at
+    month-length rows;
+18. config 8b: 16,384 valid cells (128 x 136, 1,024 NaN cells) in
+    2,048-cell chunks, one timed run of the grid runner.
 
 The line before the last is a JSON object with each kernel's launches by
 its path, error, times, bound and the one PyTorch call that computes the
@@ -130,6 +157,44 @@ G_REF_CELLS = 128
 # 0.1% of them above 1e-3, at most 0.1% of values NaN in one and not the
 # other; no bound on the maximum.
 TOL_GARD = (1e-3, 1e-3, 1e-3)
+# config 8 (bench.py:698-741, BASELINE config 8): MBCn with d = 3 variables,
+# 10 years daily (n = m = p = 3,650), 20 rotations, 2,048 cells (32 x 64);
+# config 8b: 16,384 valid cells (128 x 136 with 1,024 NaN cells) in
+# 2,048-cell chunks
+M_CELLS, M_LAT, M_LON, M_T, M_D, M_ROT = 2_048, 32, 64, 3_650, 3, 20
+M_REF_CELLS = 128
+MB_LAT, MB_LON, MB_VALID, MB_CHUNK = 128, 136, 16_384, 2_048
+# launches of each K9 form in one mbcn_correct: one a rotation (the rotated
+# obs sort, the hist sort with positions, the unsort of the mapped values)
+# and one in each of the two closing reorders; the QDM margins sort with
+# torch.sort
+K9_PER_CORRECT = M_ROT + 2
+# MBCn on the card (float32) against the CPU float64 path on M_REF_CELLS
+# cells.  Every output row must be a permutation of the card's own QDM
+# margin row, bitwise, and the margins must meet TOL_Q.  The rotation rounds
+# are chaotic in float32 (the JAX package's float32 run drifts from its
+# float64 run alike, tests/test_torch_mbc.py): a float32 near-tie swaps two
+# ranks, which moves both values by a gap of the obs distribution, which the
+# next rotation mixes into the other coordinates, where it is no longer
+# small against their gaps.  The swapped share grows several times a round
+# (mbcn_depth_drift in float32 on the CPU, 16 cells of config 8: 0.11% of
+# ranks moved after 3 rounds, 0.75% after 5, 22% after 10, 86% after 20;
+# monthly 0.013%, 0.09%, 1.1%, 3.5%).  So the element-wise limits hold
+# after MBCN_SHORT_ROT rounds and the full depth is held to the statistics
+# that MBCn corrects: the rank (Spearman) correlation of each (cell,
+# variable) series with the float64 run's, and each cell's correlation
+# matrix across the variables.  Each limit sits between the sound reading
+# on the card and that of a wrong path (mbcn_controls: the rotations rounded
+# to bfloat16, the last rotation dropped), near their geometric mean, as
+# read in a first card call of these checks (readings in PERF.md section 2).
+# Monthly (12 corrections on rows of about 304) drifts more and has limits
+# of its own.  A dropped rotation is caught after 3 rounds; after 20 the
+# rounds have converged and it stays inside the float32 drift, so a control
+# must fail at one depth at least.
+MBCN_SHORT_ROT = 3
+TOL_MBCN_SHORT = (0.01, 0.004)  # share of time steps with another rank, p99.9 |diff|
+# min Spearman, max |correlation difference|, by grouping
+TOL_MBCN_FULL = {None: (0.99967, 0.005), "month": (0.994, 0.009)}
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # bound of a kernel is the larger of its compulsory bytes over the memory
 # rate and its operations over the float32 (non-tensor-core) rate
@@ -167,7 +232,23 @@ KERNELS = {
         "source": "skdownscale_tpu_torch/csrc/knn.cu",
         "replaces": "skdownscale_tpu/ops/pallas/knn_kernel.py:535",
     },
+    "sort_rows": {
+        "route": "cuda",
+        "source": "skdownscale_tpu_torch/csrc/sort_rows.cu",
+        "replaces": "skdownscale_tpu/ops/pallas/sort_kernel.py:247",
+    },
+    "sort_rows_with_positions": {
+        "route": "cuda",
+        "source": "skdownscale_tpu_torch/csrc/sort_rows.cu",
+        "replaces": "skdownscale_tpu/ops/pallas/sort_kernel.py:260",
+    },
+    "unsort_rows": {
+        "route": "cuda",
+        "source": "skdownscale_tpu_torch/csrc/sort_rows.cu",
+        "replaces": "skdownscale_tpu/ops/pallas/sort_kernel.py:274",
+    },
 }
+K9_FORMS = ("sort_rows", "sort_rows_with_positions", "unsort_rows")
 
 
 class SmokeFailure(Exception):
@@ -502,6 +583,90 @@ def streaming_phase(X, Y, nan_cells, card, dev):
            "streaming: the streaming output is outside the stated tolerance of the dense path")
 
 
+def config5_detrend_phase(X, Y, nan_cells, card, dev):
+    """Config 5 with detrended quantile mapping, the BCSD path that runs
+    K9: ``BcsdTemperature(time_grouper="daily_nasa-nex", return_anoms=False,
+    qm_kwargs={"detrend": True})`` has no slide route, so its streaming
+    predict gathers and sorts each chunk's raw 620-day fit windows (K9,
+    above K1's 256).  Fit+predict through ``PointWiseDownscaler`` on the
+    route the port takes (K9) and on the one it took before K9 (every window
+    above 256 to the plain version: ``K9_MAX_LEN`` set to K1's limit),
+    alternating K9, plain, plain, K9 after a warm-up of each; the outputs
+    bitwise equal, NaN cells NaN; then the predict core's device time on
+    each route by CUDA events."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+    from skdownscale_tpu_torch.kernels.rank_map import COUNT_SORT_MAX_LEN
+    from skdownscale_tpu_torch.models import bcsd as B
+    from skdownscale_tpu_torch.models.batched import GROUP_CHUNK
+
+    label = "config 5 detrend"
+    routes = {"K9": contextlib.nullcontext,
+              "plain": lambda: mock.patch.object(S, "K9_MAX_LEN", COUNT_SORT_MAX_LEN)}
+
+    def model():
+        return sdt.BcsdTemperature(time_grouper="daily_nasa-nex", return_anoms=False,
+                                   qm_kwargs={"detrend": True})
+
+    def fit_predict():
+        m = sdt.PointWiseDownscaler(model(), device=dev)
+        return np.asarray(m.fit(X, Y).predict(X).values)
+
+    for route in routes:  # warm-ups
+        with routes[route]():
+            fit_predict()
+    walls, outs, launches = {r: [] for r in routes}, {}, {}
+    for route in ("K9", "plain", "plain", "K9"):
+        with routes[route]():
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            outs[route] = fit_predict()
+            walls[route].append(time.perf_counter() - t0)
+            launches[route] = dict(LAUNCHES)
+    _check(launches["K9"].get("sort_rows", 0) > 0 and "sort_rows" not in launches["plain"],
+           f"{label}: K9 launches {launches}")
+    _check(np.array_equal(outs["K9"].view(np.int32), outs["plain"].view(np.int32)),
+           f"{label}: the K9 route and the plain route give different outputs")
+    T, C = D_TIME, nan_cells.size
+    got = outs["K9"].reshape(T, C)
+    _check(np.isnan(got[:, nan_cells]).all() and np.isfinite(got[:, ~nan_cells]).all(),
+           f"{label}: NaN cells or valid cells came out wrong")
+
+    # the predict core on the card, on each route
+    est = model()
+    index = X.coords["time"]
+    fg = est._fit_groups(index)
+    plan = est._predict_plan(fg, index)
+    x, y = (torch.from_numpy(np.ascontiguousarray(A.values.reshape(T, -1)[:, ~nan_cells].T)).to(dev)
+            for A in (X, Y))
+    state = B.bcsd_fit_lazy(x, y, fg)
+    p = est._qm_params()
+    kw = {k: p[k] for k in ("alpha", "beta", "extrapolate", "n_endpoints", "detrend")}
+
+    def core():
+        return B.bcsd_predict_streaming(state, x, plan, return_anoms=False,
+                                        group_chunk=GROUP_CHUNK["daily"], **kw)
+
+    device = {r: [] for r in routes}
+    for route in ("K9", "plain", "plain", "K9"):
+        with routes[route]():
+            device[route].append(cuda_ms(core, iters=2, warmup=1))
+    for r in routes:
+        print(f"{label}: route {r}: fit+predict {C} cells x {T} days, walls "
+              + ", ".join(f"{w:.4f}" for w in walls[r]) + f" s ({C / np.mean(walls[r]):.1f} cells/s); "
+              f"predict core on the card " + ", ".join(f"{d:.3f}" for d in device[r])
+              + f" ms (CUDA events); launches {launches[r]}; card {card}")
+    print(f"{label}: K9 route minus plain route: wall {np.mean(walls['K9']) - np.mean(walls['plain']):+.4f} s, "
+          f"predict core {np.mean(device['K9']) - np.mean(device['plain']):+.3f} ms; outputs bitwise equal")
+
+
 def lapper(t):
     """``lap(name, fn)``: runs ``fn`` between two synchronises and adds its
     host-clock ms to ``t[name]``."""
@@ -644,19 +809,49 @@ def interp_tables(g, dev, B, n_fit, n_q, call):
     return (table, pp, q) if call == 1 else (pp, table, q)
 
 
+def mbcn_interp_inputs(dev):
+    """K6's inputs at config 8's fut block, taken from a one-rotation
+    ``mbcn_correct`` on config 8's data (bench.py:731-736, no NaN cells):
+    6,144 rows of 3,650 knots (the sorted rotated hist margins), their own
+    values (the rank-mapped rotated obs) and 3,650 queries (the rotated fut
+    margins); no table is shared.  The margins' K6 calls share a table and
+    are not taken."""
+    from unittest import mock
+
+    from skdownscale_tpu_torch.models import mbc as PM
+    from skdownscale_tpu_torch.ops import interp as OI
+
+    dsets = mbcn_datasets(np.random.default_rng(SEED), M_LAT, M_LON, np.zeros(M_CELLS, dtype=bool))
+    variables = list(dsets[0].data_vars)
+    blocks = [PM.to_device(PM.pack_dataset(ds, variables)[0], dev) for ds in dsets]
+    real, seen = OI.batched_interp, []
+
+    def record(xp, fp, q):
+        if xp.shape[0] == fp.shape[0] == q.shape[0] == M_CELLS * M_D:
+            seen.append((xp.clone(), fp.clone(), q.clone()))
+        return real(xp, fp, q)
+
+    with mock.patch.object(OI, "batched_interp", record):
+        PM.mbcn_correct(*blocks, PM.mbcn_rotations(M_D, 1, 0), kinds=("difference",) * M_D)
+    _check(len(seen) == 1, f"config 8: {len(seen)} K6 calls on unshared tables in one rotation, not 1")
+    return seen[0]
+
+
 def interp_kernel_phase(dev):
     """K6 bitwise against its plain version at config 9b's two calls, a
-    small table and a 20-year daily table, and timed."""
+    small table, a 20-year daily table and config 8's fut block (every row
+    its own knots and values), and timed."""
     import torch
 
     from skdownscale_tpu_torch.kernels import interp as I
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = [("config 9b call 1", Q_CELLS, Q_FIT, Q_PRED, 1), ("config 9b call 2", Q_CELLS, Q_FIT, Q_PRED, 2),
-             ("small", Q_CELLS, 40, 38, 1), ("20-year daily", 16_384, 7_305, 3_652, 2)]
+             ("small", Q_CELLS, 40, 38, 1), ("20-year daily", 16_384, 7_305, 3_652, 2), ("config 8 fut block",)]
     results = {}
-    for name, B, n_fit, n_q, call in cases:
-        xp, fp, q = interp_tables(g, dev, B, n_fit, n_q, call)
+    for name, *shape in cases:
+        xp, fp, q = interp_tables(g, dev, *shape) if shape else mbcn_interp_inputs(dev)
+        B = q.shape[0]
         got = I.batched_interp(xp, fp, q)
         torch.cuda.synchronize()
         err = bitwise_err(got, I.batched_interp_plain(xp, fp, q), f"K6 {name}")
@@ -665,10 +860,10 @@ def interp_kernel_phase(dev):
         L, Q = xp.shape[1], q.shape[1]
         n_bytes = 4 * (xp.numel() + fp.numel() + q.numel() + got.numel())
         b_ms, b_by = bound(n_bytes, B * Q * (np.ceil(np.log2(L)) + 15))
-        print(f"kernel batched_interp {name} ({B} rows, L={L}, Q={Q}, shared "
-              f"{'fp' if fp.shape[0] == 1 else 'xp'}): bitwise equal to plain, NaN out "
-              f"{int(torch.isnan(got).sum())}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB), "
+        shared = "fp" if fp.shape[0] == 1 else "xp" if xp.shape[0] == 1 else "no table"
+        print(f"kernel batched_interp {name} ({B} rows, L={L}, Q={Q}, shared {shared}): bitwise equal "
+              f"to plain, NaN out {int(torch.isnan(got).sum())}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB), "
               f"{n_bytes / ms / 1e9:.3f} TB/s moved")
         if name == "config 9b call 1":  # the main path's first call goes in the JSON line
             results["batched_interp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1116,6 +1311,409 @@ def gard_phases(rng, card, dev):
     return l4a, l4b
 
 
+def k9_rows(rng, rows, L, kind):
+    """Seeded float32 (rows, L) for K9: ``gauss`` (rotated-coordinate-like
+    N(1, 1.4)), ``windows`` (daily temperatures near 283 K, every third row
+    ending in +inf pads, as padded fit windows) or ``adversarial`` (NaN,
+    -NaN, +-0, +-inf, heavy ties, all-equal rows, and the NaN whose key is
+    INT32_MAX, bits 0x7fffffff, which ties with the kernel's pad key)."""
+    if kind == "gauss":
+        return rng.standard_normal((rows, L), dtype=np.float32) * 1.4 + 1.0
+    if kind == "windows":
+        x = rng.standard_normal((rows, L), dtype=np.float32) * 2.0 + 283.0
+        x[::3, L - L // 30 :] = np.inf
+        return x
+    x = adversarial(rng, rows, L)
+    u = x.view(np.uint32).reshape(-1)
+    u[rng.integers(0, u.size, max(1, u.size // 500))] = 0x7FFFFFFF
+    return x
+
+
+# (name, rows, L, data, timed): config 8's rows first (the JSON line)
+K9_CASES = [
+    ("config 8", M_CELLS * M_D, M_T, "gauss", True),
+    ("monthly", M_CELLS * M_D, 304, "gauss", True),
+    ("dense daily windows", 512 * 366, 620, "windows", True),
+    ("adversarial 3650", 4_096, M_T, "adversarial", False),
+    ("adversarial 37", 8_192, 37, "adversarial", False),
+    ("adversarial 7", 8_192, 7, "adversarial", False),
+    ("adversarial 1", 4_096, 1, "adversarial", False),
+    ("adversarial max", 64, None, "adversarial", False),  # L = K9_MAX_LEN
+]
+
+
+def sort_kernel_phase(rng, dev):
+    """K9's three forms bitwise against their plain versions (values and
+    positions) at every case of K9_CASES, the unsort round trip bitwise,
+    and each form timed beside its bound, its plain version, the one
+    PyTorch call that computes it and ``torch.sort(keys, stable=True)``."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+    from skdownscale_tpu_torch.ops.keys import to_ordered_int
+
+    results = {}
+    for name, B, L, kind, timed in K9_CASES:
+        L = L or S.K9_MAX_LEN
+        x = torch.from_numpy(k9_rows(rng, B, L, kind)).to(dev)
+        v = torch.from_numpy(rng.standard_normal((B, L), dtype=np.float32)).to(dev)
+        s1 = S.sort_rows(x)
+        s2, p2 = S.sort_rows_with_positions(x)
+        u = S.unsort_rows(v, p2)
+        back = S.unsort_rows(s2, p2)
+        torch.cuda.synchronize()
+        errs = {"sort_rows": bitwise_err(s1, S.sort_rows_plain(x), f"K9 sort_rows {name}")}
+        w2, wp2 = S.sort_rows_with_positions_plain(x)
+        errs["sort_rows_with_positions"] = bitwise_err(s2, w2, f"K9 sort_rows_with_positions {name}")
+        _check(torch.equal(p2, wp2), f"K9 {name}: positions differ from the stable plain version's")
+        errs["unsort_rows"] = bitwise_err(u, S.unsort_rows_plain(v, p2), f"K9 unsort_rows {name}")
+        _check(torch.equal(back.view(torch.int32), x.view(torch.int32)),
+               f"K9 {name}: unsort of the sorted rows is not the input")
+        print(f"kernel K9 {name} ({B} x {L}, {kind}): the three forms bitwise equal to their plain "
+              f"versions, positions equal, round trip exact")
+        if timed:
+            keys = to_ordered_int(x)
+            pos = p2.long()
+            stable_ms = cuda_ms(lambda: torch.sort(keys, dim=-1, stable=True), iters=10, warmup=2)
+            t = {
+                "sort_rows": (lambda: S.sort_rows(x), lambda: S.sort_rows_plain(x),
+                              lambda: torch.sort(keys, dim=-1), 8),
+                "sort_rows_with_positions": (lambda: S.sort_rows_with_positions(x),
+                                             lambda: S.sort_rows_with_positions_plain(x), None, 12),
+                "unsort_rows": (lambda: S.unsort_rows(v, p2), lambda: S.unsort_rows_plain(v, p2),
+                                lambda: torch.empty_like(v).scatter_(-1, pos, v), 12),
+            }
+            n = B * L
+            for form, (kern, plain, one_call, bytes_per) in t.items():
+                ms = cuda_ms(kern, iters=10, warmup=2)
+                plain_ms = cuda_ms(plain, iters=10, warmup=2)
+                lib = stable_ms if one_call is None else cuda_ms(one_call, iters=10, warmup=2)
+                # compulsory bytes; a sort compares each element log2 L times
+                ops = 0 if form == "unsort_rows" else n * np.log2(max(L, 2))
+                b_ms, b_by = bound(bytes_per * n, ops)
+                print(f"kernel {form} {name} ({B} x {L}): kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}), plain {plain_ms:.4f} ms, one PyTorch call {lib:.4f} ms, "
+                      f"torch.sort(keys, stable=True) {stable_ms:.4f} ms, {ms / b_ms:.1f}x its bound")
+                if name == "config 8":  # the main path's shape goes in the JSON line
+                    results[form] = {"max_abs_err": errs[form], "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        del x, v, s1, s2, p2, u, back, w2, wp2
+    return results
+
+
+def mbcn_datasets(rng, n_lat, n_lon, nan_cells):
+    """Config 8's three daily Datasets (obs, hist, fut) of M_D variables
+    ``v0..``, float32 on (time, lat, lon), as bench.py:731-736: obs ~ N(0,
+    S) with unit variances and correlation 0.6, hist ~ 1.4 N(0, 1) + 1.0,
+    fut ~ 1.4 N(0, 1) + 1.3; obs and hist from 1990-01-01, fut from
+    2050-01-01, 3,650 days each; ``nan_cells`` NaN in all three."""
+    import pandas as pd
+
+    from skdownscale_tpu_torch.xlite import DataArray, Dataset
+
+    C = n_lat * n_lon
+    corr = 0.6 * np.ones((M_D, M_D)) + 0.4 * np.eye(M_D)
+    chol_t = np.linalg.cholesky(corr).T.astype(np.float32)
+    dims = ("time", "lat", "lon")
+
+    def ds(start, scale, loc, correlated):
+        a = rng.standard_normal((M_T, C, M_D), dtype=np.float32)
+        a = (a.reshape(-1, M_D) @ chol_t).reshape(a.shape) if correlated else a * scale + loc
+        a[:, nan_cells] = np.nan
+        coords = {"time": pd.date_range(start, periods=M_T, freq="D"),
+                  "lat": np.arange(n_lat), "lon": np.arange(n_lon)}
+        return Dataset({f"v{j}": DataArray(np.ascontiguousarray(a[..., j]).reshape(M_T, n_lat, n_lon),
+                                           dims, coords) for j in range(M_D)})
+
+    return ds("1990-01-01", 1.0, 0.0, True), ds("1990-01-01", 1.4, 1.0, False), ds("2050-01-01", 1.4, 1.3, False)
+
+
+def _ranks(a):
+    """Ranks along the time axis of (C, T, d)."""
+    return np.argsort(np.argsort(a, axis=1, kind="stable"), axis=1, kind="stable")
+
+
+def rank_drift(got, want):
+    """(C, T, d) float64 host arrays: (share of time steps whose rank in its
+    (cell, variable) series differs, p99.9 |diff|, the least Spearman
+    correlation of a (cell, variable) series with the other's, the largest
+    difference of a cell's correlation matrix across the variables)."""
+    rg, rw = _ranks(got), _ranks(want)
+    T = got.shape[1]
+    d = np.abs(got - want).ravel()
+    spearman = 1.0 - 6.0 * ((rg - rw).astype(np.float64) ** 2).sum(axis=1) / (T * (T * T - 1.0))
+
+    def corr(a):
+        z = (a - a.mean(axis=1, keepdims=True)) / a.std(axis=1, keepdims=True)
+        return np.einsum("ctj,ctk->cjk", z, z) / T
+
+    return (float(np.mean(rg != rw)), float(np.quantile(d, 0.999)), float(spearman.min()),
+            float(np.abs(corr(got) - corr(want)).max()))
+
+
+def _worst(a, b):
+    return (max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2]), max(a[3], b[3]))
+
+
+def mbcn_depth_drift(correct, blocks, ref64, rots, depths):
+    """For each depth r: ``correct(y, xh, xf, rots[:r])`` on ``blocks`` (the
+    card's float32 cells) against the same on ``ref64`` (their float64 copy
+    on the CPU); the worst :func:`rank_drift` of the hist and fut outputs.
+    Returns {r: drift} and {r: the float64 outputs}."""
+    out, wants = {}, {}
+    for r in depths:
+        got = [o.double().cpu().numpy() for o in correct(*blocks, rots[:r])]
+        wants[r] = [o.numpy() for o in correct(*ref64, rots[:r])]
+        out[r] = _worst(rank_drift(got[0], wants[r][0]), rank_drift(got[1], wants[r][1]))
+    return out, wants
+
+
+def mbcn_controls(correct, blocks, rots, wants):
+    """The readings of two wrong paths on the card against the float64 run,
+    at MBCN_SHORT_ROT and M_ROT rotations: the rotations rounded to
+    bfloat16, and the last rotation dropped.  Returns {(name, r): drift}."""
+    import torch
+
+    bf16 = torch.as_tensor(rots).to(torch.bfloat16).double().numpy()
+    out = {}
+    for r in (MBCN_SHORT_ROT, M_ROT):
+        for name, rr in (("bf16 rotations", bf16[:r]), ("last rotation dropped", rots[: r - 1])):
+            got = [o.double().cpu().numpy() for o in correct(*blocks, rr)]
+            out[name, r] = _worst(rank_drift(got[0], wants[r][0]), rank_drift(got[1], wants[r][1]))
+    return out
+
+
+def mbcn_within(drift, r, group):
+    """Whether a :func:`rank_drift` reading after ``r`` rotations meets the
+    stated limits: TOL_MBCN_SHORT after MBCN_SHORT_ROT, TOL_MBCN_FULL of the
+    grouping after M_ROT."""
+    share, p999, spear, dcorr = drift
+    if r == MBCN_SHORT_ROT:
+        return share <= TOL_MBCN_SHORT[0] and p999 <= TOL_MBCN_SHORT[1]
+    return spear >= TOL_MBCN_FULL[group][0] and dcorr <= TOL_MBCN_FULL[group][1]
+
+
+def mbcn_permutation_check(label, out_h, out_f, blocks, kinds, months):
+    """Each output row (cell, variable) is a permutation of the card's own
+    QDM margin row, bitwise; per calendar month when ``months`` (obs, hist,
+    fut labels) is given.  ``out_*`` are the grid's (c, T, d) host outputs
+    of the cells in ``blocks``."""
+    import torch
+
+    from skdownscale_tpu_torch.models import mbc as PM
+    from skdownscale_tpu_torch.ops.keys import to_ordered_int
+
+    dev = blocks[0].device
+    oh, of = (torch.from_numpy(np.ascontiguousarray(o)).to(dev) for o in (out_h, out_f))
+
+    def take(a, idx):
+        return a if idx is None else a.index_select(1, torch.as_tensor(idx, device=dev))
+
+    segments = [(None, None, None)] if months is None else [
+        tuple(np.nonzero(mo == m)[0] for mo in months) for m in sorted(set(months[1].tolist()))
+    ]
+    for so, sh, sf in segments:
+        mh, mf = PM.mbcn_margins(take(blocks[0], so), take(blocks[1], sh), take(blocks[2], sf), kinds=kinds)
+        for out, marg, s in ((oh, mh, sh), (of, mf, sf)):
+            got = torch.sort(to_ordered_int(take(out, s).transpose(1, 2).contiguous()), dim=-1).values
+            want = torch.sort(to_ordered_int(marg.contiguous()), dim=-1).values
+            _check(torch.equal(got, want), f"{label}: an output row is not a permutation of its QDM margins")
+    print(f"{label}: every output row is a permutation of the card's own QDM margin row, bitwise "
+          f"({len(segments)} segment{'s' if len(segments) > 1 else ''})")
+
+
+def mbcn_phase(label, rng, card, dev, group):
+    """Config 8 (``group=None``) or config 8 monthly: warm-up and one timed
+    ``mbcn_grid`` on the card with the launch counts set to 0 just before
+    and read just after; K9 and K6 launch counts against the code's, NaN
+    cells NaN, the permutation check, the margins and the output by depth
+    against the CPU float64 path on M_REF_CELLS cells, wall, cells/s, peak
+    memory, and for config 8 the stages.  Returns the launches."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.models import mbc as PM
+
+    nan_cells = rng.random(M_CELLS) < NAN_CELL_SHARE
+    Y, XH, XF = mbcn_datasets(rng, M_LAT, M_LON, nan_cells)
+    print(f"{label}: {M_D} variables, {M_T} days obs / hist / fut, {M_CELLS} cells float32, "
+          f"{int(nan_cells.sum())} NaN cells, {M_ROT} rotations, group={group!r}")
+
+    def run():
+        return PM.mbcn_grid(Y, XH, XF, n_iterations=M_ROT, group=group, device=dev)
+
+    run()  # warm-up: CUDA context, cuBLAS, the kernels, cached tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    oh, of = run()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    variables = list(Y.data_vars)
+    packs = [PM.pack_dataset(ds, variables)[0] for ds in (Y, XH, XF)]
+    months = None
+    if group == "month":
+        months = [np.asarray(ds["v0"].coords["time"].month) for ds in (Y, XH, XF)]
+    n_groups = 1 if months is None else len(set(months[1].tolist()))
+    for form in K9_FORMS:
+        _check(launches.get(form, 0) == K9_PER_CORRECT * n_groups,
+               f"{label}: {form} launched {launches.get(form, 0)} times, the code gives "
+               f"{K9_PER_CORRECT * n_groups} ({K9_PER_CORRECT} a correction x {n_groups})")
+    _check(launches.get("batched_interp", 0) >= M_ROT * n_groups,
+           f"{label}: K6 launched {launches.get('batched_interp', 0)} times, fewer than one a rotation")
+
+    out_h, out_f = (np.stack([ds[v].values.reshape(M_T, -1) for v in variables], axis=-1).transpose(1, 0, 2)
+                    for ds in (oh, of))
+    for name, o in (("hist", out_h), ("fut", out_f)):
+        _check(np.isnan(o[nan_cells]).all(), f"{label}: a NaN cell of the {name} output has values")
+        _check(np.isfinite(o[~nan_cells]).all(), f"{label}: a valid cell of the {name} output is not finite")
+    ids = np.nonzero(~nan_cells)[0]
+    kinds = ("difference",) * M_D
+    blocks = [PM.to_device(p[ids], dev) for p in packs]
+    mbcn_permutation_check(label, out_h[ids], out_f[ids], blocks, kinds, months)
+    del blocks
+
+    # the float64 CPU path on M_REF_CELLS valid cells
+    ref = np.sort(rng.choice(ids, M_REF_CELLS, replace=False))
+    blocks = [PM.to_device(p[ref], dev) for p in packs]
+    ref64 = [torch.from_numpy(p[ref].astype(np.float64)) for p in packs]
+    rots = PM.mbcn_rotations(M_D, M_ROT, 0)
+    if group == "month":
+        def correct(y, xh, xf, r):
+            return PM.mbcn_correct_monthly(y, xh, xf, *months, r, kinds=kinds)
+        depths = (MBCN_SHORT_ROT, M_ROT)
+    else:
+        def correct(y, xh, xf, r):
+            return PM.mbcn_correct(y, xh, xf, r, kinds=kinds)
+        depths = (1, MBCN_SHORT_ROT, 5, 10, M_ROT)
+        mh, mf = PM.mbcn_margins(*blocks, kinds=kinds)
+        wh, wf = PM.mbcn_margins(*ref64, kinds=kinds)
+        d = np.concatenate([np.abs(mh.double().cpu().numpy() - wh.numpy()).ravel(),
+                            np.abs(mf.double().cpu().numpy() - wf.numpy()).ravel()])
+        p999, share, dmax = float(np.quantile(d, 0.999)), float(np.mean(d > 1e-3)), float(d.max())
+        lim_p999, lim_share, lim_max = TOL_Q
+        print(f"{label}: QDM margins of {M_REF_CELLS} cells vs CPU float64: p99.9 |diff| {p999:.6g}, share "
+              f"above 1e-3 {share:.6g}, max {dmax:.6g} (limits {lim_p999:g}, {lim_share:g}, {lim_max:g})")
+        _check(p999 <= lim_p999 and share <= lim_share and dmax <= lim_max,
+               f"{label}: the card's QDM margins are outside the quantile family's tolerance")
+    drift, wants = mbcn_depth_drift(correct, blocks, ref64, rots, depths)
+    for r, (share, p999, spear, dcorr) in drift.items():
+        print(f"{label}: {M_REF_CELLS} cells after {r} rotation(s) vs CPU float64: share of time steps "
+              f"with another rank {share:.6g}, p99.9 |diff| {p999:.6g}, min Spearman {spear:.8f}, max "
+              f"|correlation difference| {dcorr:.6g}")
+    _check(mbcn_within(drift[MBCN_SHORT_ROT], MBCN_SHORT_ROT, group),
+           f"{label}: after {MBCN_SHORT_ROT} rotations the card is outside the stated tolerance "
+           f"(share <= {TOL_MBCN_SHORT[0]}, p99.9 <= {TOL_MBCN_SHORT[1]}): {drift[MBCN_SHORT_ROT]}")
+    full = _worst(rank_drift(out_h[ref].astype(np.float64), wants[M_ROT][0]),
+                  rank_drift(out_f[ref].astype(np.float64), wants[M_ROT][1]))
+    print(f"{label}: the grid's output on those cells vs CPU float64 ({M_ROT} rotations): share of time "
+          f"steps with another rank {full[0]:.6g}, p99.9 |diff| {full[1]:.6g}, min Spearman "
+          f"{full[2]:.8f}, max |correlation difference| {full[3]:.6g} (limits Spearman >= "
+          f"{TOL_MBCN_FULL[group][0]:g}, correlation <= {TOL_MBCN_FULL[group][1]:g})")
+    _check(mbcn_within(full, M_ROT, group),
+           f"{label}: the card's output is outside the stated tolerance of the CPU float64 path")
+    # the limits must fail paths that are wrong: each control at one depth at least
+    caught = {}
+    for (name, r), c in mbcn_controls(correct, blocks, rots, wants).items():
+        out = not mbcn_within(c, r, group)
+        caught[name] = caught.get(name, False) or out
+        print(f"{label}: control '{name}' after {r} rotations vs CPU float64: share of time steps with "
+              f"another rank {c[0]:.6g}, p99.9 |diff| {c[1]:.6g}, min Spearman {c[2]:.8f}, max "
+              f"|correlation difference| {c[3]:.6g}: {'outside' if out else 'inside'} the limits")
+    for name, out in caught.items():
+        _check(out, f"{label}: the control '{name}' meets the limits at every depth, so they cannot "
+                    f"tell it from the sound path")
+    print(f"{label}: mbcn_grid {M_CELLS} cells x {M_T} days x {M_D} variables, {M_ROT} rotations: wall "
+          f"{wall:.4f} s, {M_CELLS / wall:.1f} cells/s (host pack, copies and unpack included); peak "
+          f"device memory {peak / 2**30:.3f} GiB; launches {launches}; card {card}")
+    if group is None:
+        stages = mbcn_stages(Y, XH, XF, dev)
+        print(f"{label}: stages of one mbcn_grid (ms, host clock, synchronised): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f"; device share of the wall {stages['correct device'] / (wall * 1e3):.4f}; card {card}")
+    return launches
+
+
+def mbcn_stages(Y, XH, XF, dev):
+    """``mbcn_grid``'s steps one by one: pack, compact, copies in, the
+    margins, the rotation rounds, the reorder, the copy back and the
+    unpack; then the device time of ``mbcn_correct`` by CUDA events and its
+    largest kernels by ``torch.profiler``."""
+    import torch
+
+    from skdownscale_tpu_torch.models import mbc as PM
+
+    t = {}
+    lap = lapper(t)
+    variables = list(Y.data_vars)
+    packs = [lap("pack", lambda ds=ds: PM.pack_dataset(ds, variables)) for ds in (Y, XH, XF)]
+    ids = lap("compact", lambda: PM.valid_cells(*(p[0] for p in packs)))
+    hosts = [lap("compact", lambda p=p: np.ascontiguousarray(p[0][ids], dtype=np.float32)) for p in packs]
+    yo, xh, xf = (lap("host to device", lambda h=h: torch.from_numpy(h).to(dev)) for h in hosts)
+    kinds = ("difference",) * M_D
+    rots = torch.as_tensor(PM.mbcn_rotations(M_D, M_ROT, 0), dtype=torch.float32, device=dev)
+    lo, hi, w = PM._rank_bracket_dev(M_T, M_T, 0.4, 0.4, dev, torch.float32)
+    mh, mf = lap("margins", lambda: PM.mbcn_margins(yo, xh, xf, kinds=kinds))
+    zh, zf = lap("rotations", lambda: PM.mbcn_iterate(yo, mh, mf, rots, lo, hi, w))
+    oh, of = lap("reorder", lambda: (PM.mbcn_reorder(mh, zh), PM.mbcn_reorder(mf, zf)))
+    host = lap("device to host", lambda: (oh.cpu().numpy(), of.cpu().numpy()))
+
+    def unpack():
+        for o, p in zip(host, packs[1:]):
+            full = np.full_like(p[0], np.nan)
+            full[ids] = o
+            PM.unpack_dataset(full, p[1], p[2], variables)
+
+    lap("unpack", unpack)
+
+    def core():
+        return PM.mbcn_correct(yo, xh, xf, rots, kinds=kinds)
+
+    t["correct device"] = cuda_ms(core, iters=3, warmup=1)
+    print_top_kernels("mbcn_correct", core)
+    return t
+
+
+def config8b_phase(rng, card, dev):
+    """Config 8b: 16,384 valid cells in 2,048-cell chunks, one timed
+    ``mbcn_grid`` run (the kernels are built and warm): launches per chunk,
+    NaN cells NaN, valid cells finite, wall and cells/s."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.models import mbc as PM
+
+    C = MB_LAT * MB_LON
+    nan_cells = np.zeros(C, dtype=bool)
+    nan_cells[rng.choice(C, C - MB_VALID, replace=False)] = True
+    Y, XH, XF = mbcn_datasets(rng, MB_LAT, MB_LON, nan_cells)
+    n_chunks = -(-MB_VALID // MB_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    oh, of = PM.mbcn_grid(Y, XH, XF, n_iterations=M_ROT, cell_chunk_size=MB_CHUNK, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for form in K9_FORMS:
+        _check(launches.get(form, 0) == K9_PER_CORRECT * n_chunks,
+               f"config 8b: {form} launched {launches.get(form, 0)} times, the code gives "
+               f"{K9_PER_CORRECT * n_chunks}")
+    for ds in (oh, of):
+        for v in ds.data_vars:
+            a = ds[v].values.reshape(M_T, -1)
+            _check(np.isnan(a[:, nan_cells]).all() and np.isfinite(a[:, ~nan_cells]).all(),
+                   f"config 8b: NaN cells or valid cells of {v} came out wrong")
+    print(f"config 8b: mbcn_grid {C} cells ({MB_VALID} valid) x {M_T} days x {M_D} variables in "
+          f"{n_chunks} chunks of {MB_CHUNK}, {M_ROT} rotations: wall {wall:.4f} s, {C / wall:.1f} "
+          f"cells/s ({MB_VALID / wall:.1f} valid cells/s; data made before the clock starts); peak device "
+          f"memory {peak / 2**30:.3f} GiB; launches {launches}; card {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1165,6 +1763,7 @@ def main() -> int:
             ("slide_sorted_windows", "rank_map_segments"),
         )
         launches["slide_sorted_windows"] = daily["slide_sorted_windows"]
+        config5_detrend_phase(X, Y, nan_cells, card, dev)
         del X, Y
 
         kernels.update(interp_kernel_phase(dev))
@@ -1194,6 +1793,13 @@ def main() -> int:
         l4a, l4b = gard_phases(rng, card, dev)
         launches["pure_analog_stats"] = l4a["pure_analog_stats"]
         launches["analog_regression_stats"] = l4b["analog_regression_stats"]
+
+        kernels.update(sort_kernel_phase(rng, dev))
+        l8 = mbcn_phase("config 8", rng, card, dev, None)
+        for form in K9_FORMS:
+            launches[form] = l8[form]
+        mbcn_phase("config 8 monthly", rng, card, dev, "month")
+        config8b_phase(rng, card, dev)
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

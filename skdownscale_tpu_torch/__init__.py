@@ -9,9 +9,11 @@ quantile-mapping family (``CunnaneTransformer``, ``QuantileMapper``,
 ``TrendAwareQuantileMappingRegressor``, ``LinearTrendTransformer``) and
 the GARD analog family (``PureAnalog``, ``AnalogRegression``,
 ``PureRegression``), through ``PointWiseDownscaler`` and the single-cell
-API, with hand-written CUDA kernels for the segment count-sort, rank-map,
-sliding sorted window, batched table interpolation and the fused analog
-selection and statistics (``kernels/``, sources in ``csrc/``).
+API, and multivariate MBCn (``MBCn``, ``models.mbc.mbcn_grid``), with
+hand-written CUDA kernels for the segment count-sort, rank-map, sliding
+sorted window, batched table interpolation, the fused analog selection and
+statistics, and the row sort with positions and unsort (K9) (``kernels/``,
+sources in ``csrc/``).
 
 The single-cell API runs on the card unless the caller sets
 ``SingleCellEstimator.single_cell_device = torch.device("cpu")``
@@ -31,6 +33,7 @@ from . import xlite  # noqa: E402
 from .models.bcsd import BcsdPrecipitation, BcsdTemperature  # noqa: E402
 from .models.gard import AnalogRegression, PureAnalog, PureRegression  # noqa: E402
 from .models.groupers import DAY_GROUPER, MONTH_GROUPER, PaddedDOYGrouper  # noqa: E402
+from .models.mbc import MBCn  # noqa: E402
 from .models.quantile import (  # noqa: E402
     CunnaneTransformer,
     EquidistantCdfMatcher,
@@ -57,5 +60,6 @@ __all__ = [
     "PureAnalog",
     "AnalogRegression",
     "PureRegression",
+    "MBCn",
     "xlite",
 ]

@@ -11,7 +11,8 @@ package can be used by the other's predict.  The quantile family's states
 (``QmState``, ``QmrState``, ``TrendState``) are named tuples of arrays with
 the same fields in both packages and move the same way, as do the GARD
 family's ``GardState`` (the grid's training set) and
-``PureRegressionState``.
+``PureRegressionState``.  A fitted JAX ``MBCn`` wrapper (whose state is
+numpy arrays) becomes the port's ``MBCn`` with :func:`mbcn_state_from_jax`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from .models.batched import GardState
 from .models.bcsd import BcsdLazyState, BcsdState
 from .models.gard import PureRegressionState
+from .models.mbc import MBCn
 from .models.quantile import QmrState, QmState
 from .models.trend import TrendState
 
@@ -37,6 +39,7 @@ __all__ = [
     "trend_state_from_jax",
     "gard_state_from_jax",
     "pure_regression_state_from_jax",
+    "mbcn_state_from_jax",
     "state_to_numpy",
 ]
 
@@ -97,3 +100,21 @@ def pure_regression_state_from_jax(
     return PureRegressionState(
         *floats, torch.tensor(np.asarray(has_logistic), dtype=torch.bool, device=torch.device(device))
     )
+
+
+def mbcn_state_from_jax(model) -> MBCn:
+    """A fitted JAX ``MBCn`` -> the port's ``MBCn`` with the same parameters
+    and fitted state: ``x_hist_``, ``y_obs_``, ``rotations_``,
+    ``n_features_in_``, the columns and, for ``group="month"``, the month
+    labels of the calibration and observation blocks.  Reads the model's
+    numpy attributes only; it runs on the port's ``single_cell_device``."""
+    out = MBCn(**model.get_params())
+    out.x_hist_ = np.asarray(model.x_hist_, dtype=np.float64)
+    out.y_obs_ = np.asarray(model.y_obs_, dtype=np.float64)
+    out.rotations_ = np.asarray(model.rotations_, dtype=np.float64)
+    out.n_features_in_ = int(model.n_features_in_)
+    out._columns = list(model._columns)
+    if model.group == "month":
+        out._months_hist = np.asarray(model._months_hist)
+        out._months_obs = np.asarray(model._months_obs)
+    return out

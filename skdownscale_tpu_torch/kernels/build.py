@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 # every CUDA source of the package, by name (csrc/<name>.cu)
-SOURCES = ("rank_map", "slide_sort", "interp", "knn")
+SOURCES = ("rank_map", "slide_sort", "interp", "knn", "sort_rows")
 
 # one lock per source: two threads never build the same library at once,
 # while different sources build side by side

@@ -1,1 +1,2 @@
-"""Estimators and their batched (cells, time) implementations."""
+"""Estimators and their batched (cells, time) implementations; MBCn
+(``mbc.py``) has its own grid runner, ``mbcn_grid``."""

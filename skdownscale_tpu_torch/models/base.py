@@ -21,6 +21,8 @@ import warnings
 import numpy as np
 import torch
 
+from ..utils.timeindex import TimeIndex
+
 __all__ = [
     "NotFittedError",
     "SingleCellEstimator",
@@ -229,6 +231,20 @@ class SingleCellEstimator:
             if not np.array_equal(np.asarray(X.index), np.asarray(y.index)):
                 raise ValueError("X and y must share an identical index")
         return X, y
+
+    def _time_index(self, X, freq: str | None = None) -> TimeIndex:
+        """Host-side calendar features for X's time axis; fabricates a
+        monthly-from-1950 index for raw arrays (``base.py:21-24``)."""
+        if _is_pandas(X):
+            try:
+                return TimeIndex.from_pandas(X.index)
+            except (TypeError, ValueError):
+                pass
+        warnings.warn("X and y do not have pandas DateTimeIndexes, making one up...")
+        import pandas as pd
+
+        idx = pd.date_range(start="1950", periods=len(X), freq=freq or self._timestep)
+        return TimeIndex.from_pandas(idx)
 
     def score(self, X, y, sample_weight=None):
         """Coefficient of determination of the prediction (sklearn's

@@ -24,12 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels.rank_map import (
-    COUNT_SORT_MAX_LEN,
-    count_sort_segments,
-    count_sort_segments_plain,
-    rank_map_segments,
-)
+from ..kernels.rank_map import COUNT_SORT_MAX_LEN, count_sort_segments, rank_map_segments
+from ..kernels.sort_rows import on_rows
 from ..ops.regression import ols_1d
 from ..utils.timeindex import PaddedGroups
 
@@ -143,18 +139,23 @@ def scatter_groups(vals_flat, groups: PaddedGroups, n: int):
 # ----------------------------------------------------------------------
 
 
-def _sort_within_groups(vflat, groups: PaddedGroups):
-    """Sort each group's slots by value with the segment count-sort K1 on
-    the flat (rows, G*L) table.  Groups longer than K1 takes sort their
-    order-isomorphic keys with ``torch.sort`` (the JAX package routes them
-    to ``lax.sort`` the same way): a shape route, taken before any launch."""
-    G, L = groups.indices.shape
-    flat2 = vflat.reshape(-1, G * L)
+def _sort_segments(flat, L: int):
+    """Sort each length-``L`` segment of a (rows, G*L) table: the segment
+    count-sort K1 up to ``COUNT_SORT_MAX_LEN``, above it the row sort K9 on
+    the (rows*G, L) view (the dense daily fit's 620-wide windows; the JAX
+    package's ``grouped.py:170`` and ``streaming.py:75`` sites), which
+    :func:`..kernels.sort_rows.on_rows` sends to its plain version above
+    ``K9_MAX_LEN``: shape routes, taken before any launch.  All give the
+    same bits."""
     if L <= COUNT_SORT_MAX_LEN:
-        out = count_sort_segments(flat2, L)
-    else:
-        out = count_sort_segments_plain(flat2, L)
-    return out.reshape(vflat.shape)
+        return count_sort_segments(flat, L)
+    return on_rows("sort_rows", flat.reshape(-1, L)).reshape(flat.shape)
+
+
+def _sort_within_groups(vflat, groups: PaddedGroups):
+    """Sort each group's slots by value on the flat (rows, G*L) table."""
+    G, L = groups.indices.shape
+    return _sort_segments(vflat.reshape(-1, G * L), L).reshape(vflat.shape)
 
 
 def _masked_trend(xg_flat, groups: PaddedGroups):

@@ -34,10 +34,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels.rank_map import COUNT_SORT_MAX_LEN, count_sort_segments, count_sort_segments_plain
 from ..ops.regression import ols_1d
 from ..utils.timeindex import PaddedGroups
-from .grouped import _padded_pp, _rank_bracket_row, apply_ranked_flat
+from .grouped import _padded_pp, _rank_bracket_row, _sort_segments, apply_ranked_flat
 
 __all__ = [
     "StreamTables",
@@ -52,16 +51,10 @@ _INF = float("inf")
 
 def _sort_groups_3d(masked3, Lt: int):
     """Sort the ``Lt``-wide windows of a (..., Gc, Lt) chunk on its flat
-    (rows, Gc*Lt) view: the segment count-sort K1 up to
-    ``COUNT_SORT_MAX_LEN``, ``torch.sort`` of the ordered keys above it (the
-    JAX package's route, ``streaming.py:68``), taken before any launch."""
+    (rows, Gc*Lt) view (:func:`.grouped._sort_segments`: K1, K9 or the plain
+    version by ``Lt``)."""
     Gc = masked3.shape[-2]
-    flat = masked3.reshape(-1, Gc * Lt)
-    if Lt <= COUNT_SORT_MAX_LEN:
-        out = count_sort_segments(flat, Lt)
-    else:
-        out = count_sort_segments_plain(flat, Lt)
-    return out.reshape(masked3.shape)
+    return _sort_segments(masked3.reshape(-1, Gc * Lt), Lt).reshape(masked3.shape)
 
 
 class StreamTables(NamedTuple):

@@ -541,3 +541,166 @@ def test_gard_single_cell_runs_on_the_card(cuda_device, rng):
         assert out.shape == (50, 3) and out.dtype == np.float32
     assert KN.LAUNCHES["pure_analog_stats"] == n0.get("pure_analog_stats", 0) + 1
     assert KN.LAUNCHES["analog_regression_stats"] == n0.get("analog_regression_stats", 0) + 1
+
+
+# ----------------------------------------------------------------------
+# K9 and MBCn
+# ----------------------------------------------------------------------
+
+
+def _k9_rows(rng, B, L):
+    """Adversarial float32 rows plus the NaN whose key is INT32_MAX (bits
+    0x7fffffff), which ties with the kernel's pad key."""
+    x = _adversarial(rng, B, L)
+    u = x.view(np.uint32).reshape(-1)
+    u[rng.integers(0, u.size, max(1, u.size // 300))] = 0x7FFFFFFF
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(4096, 1), (4096, 7), (2048, 620), (512, 3650), (32, 8192)])
+def test_k9_forms_bitwise_vs_plain(cuda_device, rng, B, L):
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+
+    x = torch.from_numpy(_k9_rows(rng, B, L)).to(cuda_device)
+    v = torch.from_numpy(rng.normal(0, 1, (B, L)).astype(np.float32)).to(cuda_device)
+    n0 = dict(S.LAUNCHES)
+    s1 = S.sort_rows(x)
+    s2, p2 = S.sort_rows_with_positions(x)
+    u = S.unsort_rows(v, p2)
+    back = S.unsort_rows(s2, p2)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["sort_rows"] == n0.get("sort_rows", 0) + 1
+    assert S.LAUNCHES["sort_rows_with_positions"] == n0.get("sort_rows_with_positions", 0) + 1
+    assert S.LAUNCHES["unsort_rows"] == n0.get("unsort_rows", 0) + 2
+    w2, wp2 = S.sort_rows_with_positions_plain(x)
+    assert torch.equal(s1.view(torch.int32), S.sort_rows_plain(x).view(torch.int32))
+    assert torch.equal(s2.view(torch.int32), w2.view(torch.int32))
+    assert p2.dtype == torch.int32 and torch.equal(p2, wp2)
+    assert torch.equal(u.view(torch.int32), S.unsort_rows_plain(v, p2).view(torch.int32))
+    assert torch.equal(back.view(torch.int32), x.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_k9_above_its_limit_takes_the_plain_route(cuda_device, rng):
+    """Rows of K9_MAX_LEN + 1: the wrappers raise, and the callers' shape
+    route (MBCn's reorder, the BCSD group sort) takes the plain version and
+    launches nothing."""
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+    from skdownscale_tpu_torch.models import mbc as PM
+    from skdownscale_tpu_torch.models.grouped import _sort_within_groups
+    from skdownscale_tpu_torch.utils.timeindex import PaddedGroups
+
+    L = S.K9_MAX_LEN + 1
+    x = torch.from_numpy(rng.normal(0, 1, (6, L)).astype(np.float32)).to(cuda_device)
+    t = torch.from_numpy(rng.normal(0, 1, (6, L)).astype(np.float32)).to(cuda_device)
+    for call in (lambda: S.sort_rows(x), lambda: S.sort_rows_with_positions(x)):
+        with pytest.raises(ValueError):
+            call()
+    n0 = dict(S.LAUNCHES)
+    out = PM.rank_reorder(x, t)
+    groups = PaddedGroups.from_labels(np.zeros(L, np.int64), np.arange(1))
+    srt = _sort_within_groups(x, groups)
+    torch.cuda.synchronize()
+    assert dict(S.LAUNCHES) == n0
+    assert torch.equal(srt.view(torch.int32), S.sort_rows_plain(x).view(torch.int32))
+    assert torch.equal(torch.sort(out, dim=1).values, torch.sort(x, dim=1).values)
+
+
+@pytest.mark.cuda
+def test_k9_wrappers_raise_on_what_the_kernel_does_not_take(cuda_device):
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+
+    x = torch.zeros((4, 50), device=cuda_device)
+    pos = torch.zeros((4, 50), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        S.sort_rows(x.double())
+    with pytest.raises(ValueError):  # not contiguous
+        S.sort_rows_with_positions(torch.zeros((4, 100), device=cuda_device)[:, ::2])
+    with pytest.raises(TypeError):  # int64 positions
+        S.unsort_rows(x, pos.long())
+    with pytest.raises(ValueError):  # positions on another device
+        S.unsort_rows(x, pos.cpu())
+
+
+def _mbcn_cells(rng, C, T, d=3):
+    corr = 0.6 * np.ones((d, d)) + 0.4 * np.eye(d)
+    y = rng.standard_normal((C, T, d)) @ np.linalg.cholesky(corr).T
+    xh = rng.standard_normal((C, T, d)) * 1.4 + 1.0
+    xf = rng.standard_normal((C, T, d)) * 1.4 + 1.3
+    return [a.astype(np.float32) for a in (y, xh, xf)]
+
+
+@pytest.mark.cuda
+def test_mbcn_on_cuda_launches_k9_and_k6_not_the_plain_versions(cuda_device, rng, monkeypatch):
+    """MBCn on the card launches K9 (22 of each form at 20 rotations) and K6
+    (one a rotation) with the plain versions made to raise; each output row
+    is a permutation of the card's QDM margin row, bitwise; after 3
+    rotations at most 1% of time steps take another rank than on the CPU
+    in float64, p99.9 |diff| <= 0.004 (chip_smoke.py's limits)."""
+    from skdownscale_tpu_torch.kernels import interp as I
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+    from skdownscale_tpu_torch.models import mbc as PM
+
+    y, xh, xf = _mbcn_cells(rng, 64, 3650)
+    kinds = ("difference",) * 3
+    rots = PM.mbcn_rotations(3, 20, 0)
+    dev = [torch.from_numpy(a).to(cuda_device) for a in (y, xh, xf)]
+    def raiser(*a, **k):
+        raise AssertionError("a plain version ran on CUDA")
+
+    # the wrappers' fallback and on_rows' long-row route
+    for name in ("sort_rows_plain", "sort_rows_with_positions_plain", "unsort_rows_plain"):
+        monkeypatch.setattr(S, name, raiser)
+    monkeypatch.setattr(I, "batched_interp_plain", raiser)
+    n0 = dict(S.LAUNCHES)
+    oh, of = PM.mbcn_correct(*dev, rots, kinds=kinds)
+    torch.cuda.synchronize()
+    for form in ("sort_rows", "sort_rows_with_positions", "unsort_rows"):
+        assert S.LAUNCHES[form] == n0.get(form, 0) + 22, form
+    assert S.LAUNCHES["batched_interp"] >= n0.get("batched_interp", 0) + 20
+    mh, mf = PM.mbcn_margins(*dev, kinds=kinds)
+    for out, marg in ((oh, mh), (of, mf)):
+        got = torch.sort(out.transpose(1, 2).contiguous(), dim=-1).values
+        assert torch.equal(got.view(torch.int32), torch.sort(marg, dim=-1).values.view(torch.int32))
+    monkeypatch.undo()
+    got = PM.mbcn_correct(*dev, rots[:3], kinds=kinds)
+    want = PM.mbcn_correct(*(torch.from_numpy(a.astype(np.float64)) for a in (y, xh, xf)), rots[:3], kinds=kinds)
+    for g, w in zip(got, want):
+        g, w = g.double().cpu().numpy(), w.numpy()
+        rg = np.argsort(np.argsort(g, axis=1, kind="stable"), axis=1, kind="stable")
+        rw = np.argsort(np.argsort(w, axis=1, kind="stable"), axis=1, kind="stable")
+        assert np.mean(rg != rw) <= 0.01
+        assert np.quantile(np.abs(g - w), 0.999) <= 0.004
+
+
+@pytest.mark.cuda
+def test_mbcn_grid_and_single_cell_on_the_card(cuda_device, rng):
+    """``mbcn_grid`` defaults to the card: float32 out, NaN cells NaN; the
+    single-cell ``MBCn`` runs there too."""
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+    from skdownscale_tpu_torch.models import mbc as PM
+    from skdownscale_tpu_torch.xlite import Dataset
+
+    T, ny, nx = 400, 4, 5
+    idx = pd.date_range("1990-01-01", periods=T, freq="D")
+    coords = {"time": idx, "y": np.arange(ny), "x": np.arange(nx)}
+
+    def ds(loc):
+        out = {}
+        for j in range(2):
+            a = rng.normal(loc + j, 1.5, (T, ny, nx)).astype(np.float32)
+            a[:, 0, 0] = np.nan
+            out[f"v{j}"] = DataArray(a, ("time", "y", "x"), coords)
+        return Dataset(out)
+
+    n0 = S.LAUNCHES["sort_rows"]
+    oh, of = PM.mbcn_grid(ds(0.0), ds(1.0), ds(1.3), n_iterations=4, group="month")
+    assert S.LAUNCHES["sort_rows"] == n0 + 6 * 12
+    for out in (oh, of):
+        a = out["v0"].values
+        assert a.dtype == np.float32 and np.isnan(a[:, 0, 0]).all() and np.isfinite(a[:, 1:]).all()
+    y, xh, xf = (a[0] for a in _mbcn_cells(rng, 1, 500))
+    m = P.MBCn(n_iterations=5).fit(xh, y)
+    out = m.predict(xf)
+    assert out.dtype == np.float32 and out.shape == xf.shape and np.isfinite(out).all()

@@ -82,8 +82,10 @@ with a non-zero exit at the first failure, it:
     3,650), monthly MBCn rows (6,144 x 304), the dense daily BCSD fit's
     windows (512 cells x 366 windows x 620) and adversarial rows (NaN
     payloads including the bits 0x7fffffff, +-0, +-inf, heavy ties,
-    all-equal rows, L = 1, 7, 37 and K9_MAX_LEN), and times each form
-    beside its bound, its plain version and one ``torch.sort`` call;
+    all-equal rows, L = 1, 7, 37, 304, 620, 1,025, 3,650 and K9_MAX_LEN,
+    with row counts that leave a block of four rows part full), and times
+    each form beside its bound, its plain version and one ``torch.sort``
+    call;
 16. config 8, this slice's main path: ``mbcn_grid`` on three 3-variable
     daily Datasets (obs, hist, fut; 3,650 days each; data as
     bench.py:731-736) of 2,048 cells (32 x 64, about 5% NaN cells), 20
@@ -1316,7 +1318,8 @@ def k9_rows(rng, rows, L, kind):
     N(1, 1.4)), ``windows`` (daily temperatures near 283 K, every third row
     ending in +inf pads, as padded fit windows) or ``adversarial`` (NaN,
     -NaN, +-0, +-inf, heavy ties, all-equal rows, and the NaN whose key is
-    INT32_MAX, bits 0x7fffffff, which ties with the kernel's pad key)."""
+    INT32_MAX, bits 0x7fffffff, which ties with the TPU kernel's pad key,
+    ROADMAP F8)."""
     if kind == "gauss":
         return rng.standard_normal((rows, L), dtype=np.float32) * 1.4 + 1.0
     if kind == "windows":
@@ -1335,6 +1338,10 @@ K9_CASES = [
     ("monthly", M_CELLS * M_D, 304, "gauss", True),
     ("dense daily windows", 512 * 366, 620, "windows", True),
     ("adversarial 3650", 4_096, M_T, "adversarial", False),
+    # a warp a row, four rows a block: row counts that leave a block part full
+    ("adversarial 304", 6_143, 304, "adversarial", False),
+    ("adversarial 620", 3_001, 620, "adversarial", False),
+    ("adversarial 1025", 1_001, 1_025, "adversarial", False),  # the shortest block-a-row
     ("adversarial 37", 8_192, 37, "adversarial", False),
     ("adversarial 7", 8_192, 7, "adversarial", False),
     ("adversarial 1", 4_096, 1, "adversarial", False),

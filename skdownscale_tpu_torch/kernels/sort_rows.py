@@ -50,9 +50,10 @@ __all__ = [
     "unsort_rows_plain",
 ]
 
-# longest row the kernel takes: a block holds its row padded to a power of
-# two as 8-byte words in shared memory, 64 KB at 8,192 (of the 227 KB a
-# block may use), which covers 10 and 20 years of daily data (3,650, 7,305)
+# longest row the kernel takes: positions travel as 16-bit payloads, and a
+# block holds its row's keys and positions in shared memory, 48 KB at 8,192
+# (of the 227 KB a block may use); that covers 10 and 20 years of daily data
+# (3,650, 7,305)
 K9_MAX_LEN = 8192
 
 

@@ -550,7 +550,7 @@ def test_gard_single_cell_runs_on_the_card(cuda_device, rng):
 
 def _k9_rows(rng, B, L):
     """Adversarial float32 rows plus the NaN whose key is INT32_MAX (bits
-    0x7fffffff), which ties with the kernel's pad key."""
+    0x7fffffff), which ties with the TPU kernel's pad key (ROADMAP F8)."""
     x = _adversarial(rng, B, L)
     u = x.view(np.uint32).reshape(-1)
     u[rng.integers(0, u.size, max(1, u.size // 300))] = 0x7FFFFFFF
@@ -558,7 +558,13 @@ def _k9_rows(rng, B, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L", [(4096, 1), (4096, 7), (2048, 620), (512, 3650), (32, 8192)])
+@pytest.mark.parametrize(
+    "B,L",
+    [(4096, 1), (4096, 7), (2048, 620), (512, 3650), (32, 8192),
+     # a warp a row (L <= 1,024, four rows a block) and a block a row around
+     # the edge between them, with row counts that leave a block part full
+     (6144, 304), (3001, 620), (64, 1024), (64, 1025), (8, 33), (7, 8191)],
+)
 def test_k9_forms_bitwise_vs_plain(cuda_device, rng, B, L):
     from skdownscale_tpu_torch.kernels import sort_rows as S
 

@@ -145,6 +145,90 @@ def test_f8_pallas_k9_returns_pad_positions_the_port_does_not(rng):
 
 
 # ----------------------------------------------------------------------
+# the CUDA kernel's design (csrc/sort_rows.cu), modelled in numpy: a
+# stable LSD radix sort gives the plain version's values and positions
+# ----------------------------------------------------------------------
+
+
+def _warps_and_items(L):
+    """(warps a row, items a lane) as the launcher of csrc/sort_rows.cu
+    picks them: a warp a row up to 1,024, else a block of at least 8 warps
+    with contiguous chunks of 4, 12 or 16 items a lane."""
+    if L <= 1024:
+        return 1, 4 * -(-L // 128)
+    items = 4 if L <= 2048 else 12 if L <= 4096 else 16
+    return max(8, -(-L // (32 * items))), items
+
+
+def _radix_model(x):
+    """(sorted values, int32 positions) of float32 rows ``x`` as the kernel
+    computes them: 32-bit keys ``ordered_ukey`` (the order-isomorphic key
+    with its sign bit flipped), four 8-bit LSD passes, positions carried
+    as uint16.  In each pass every warp ranks its items in warp-striped
+    (i, l) order (item i of lane l is element i*32 + l of the warp's chunk):
+    the running count of the item's digit in the warp's counters plus its
+    peers on lower lanes; an exclusive scan of the counts in (digit, warp)
+    order gives each warp its base per digit.  A pass whose byte is the
+    same in every key of the row is skipped."""
+    B, L = x.shape
+    n_warps, items = _warps_and_items(L)
+    chunk = 32 * items
+    ukeys = _keys(x).view(np.uint32) ^ np.uint32(0x80000000)
+    positions = np.tile(np.arange(L, dtype=np.uint16), (B, 1))
+    lanes = np.arange(32)
+    for b in range(B):
+        key, pos = ukeys[b], positions[b]
+        varying = int(np.bitwise_and.reduce(key) ^ np.bitwise_or.reduce(key))
+        for shift in (0, 8, 16, 24):
+            if not (varying >> shift) & 0xFF:
+                continue
+            digit = ((key >> shift) & 0xFF).astype(np.int64)
+            counts = np.zeros((n_warps, 256), np.int64)
+            local = np.empty(L, np.int64)
+            for w in range(n_warps):
+                for i in range(items):
+                    e = w * chunk + i * 32 + lanes
+                    e = e[e < L]
+                    if e.size == 0:
+                        break
+                    d = digit[e]
+                    peers = d[:, None] == d[None, :]
+                    local[e] = counts[w, d] + np.tril(peers, -1).sum(1)
+                    np.add.at(counts[w], d, 1)
+            flat = counts.T.ravel()  # (digit, warp) order
+            base = (np.cumsum(flat) - flat).reshape(256, n_warps).T
+            rank = base[np.arange(L) // chunk, digit] + local
+            npt.assert_array_equal(np.sort(rank), np.arange(L))
+            key[rank], pos[rank] = key.copy(), pos.copy()
+    ordered = (ukeys ^ np.uint32(0x80000000)).view(np.int32)
+    bits = np.where(ordered >= 0, ordered, np.invert(ordered ^ np.int32(-(2**31))))
+    return bits.view(np.float32), positions.astype(np.int32)
+
+
+def _nan_zero_rows(rng, B, L):
+    """Rows holding the NaN 0x7fffffff (INT32_MAX's key), other NaN
+    payloads, -NaN, +-0 and +-inf."""
+    x = rng.normal(0, 5, (B, L)).astype(np.float32)
+    flat = x.view(np.uint32).reshape(-1)
+    for bits in (0x7FFFFFFF, 0x7FC00000, 0xFFC00000, 0xFFFFFFFF, 0x0, 0x80000000, 0x7F800000,
+                 0xFF800000):
+        flat[rng.integers(0, flat.size, max(1, flat.size // 40))] = bits
+    return x
+
+
+@pytest.mark.parametrize("kind", ["specials", "nan_zero"])
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 620, 1025, 8192])
+def test_radix_model_matches_the_plain_stable_sort_bitwise(rng, L, kind):
+    B = 6 if L < 8192 else 3
+    x = _specials(rng, B, L) if kind == "specials" else _nan_zero_rows(rng, B, L)
+    vals, pos = _radix_model(x)
+    want_v, want_p = K.sort_rows_with_positions_plain(torch.from_numpy(x))
+    npt.assert_array_equal(_bits(vals), _bits(want_v.numpy()))
+    npt.assert_array_equal(pos, want_p.numpy())
+    npt.assert_array_equal(_bits(vals), _bits(K.sort_rows_plain(torch.from_numpy(x)).numpy()))
+
+
+# ----------------------------------------------------------------------
 # the BCSD row sort sites: 256 < L <= K9_MAX_LEN goes to K9
 # ----------------------------------------------------------------------
 

@@ -10,7 +10,8 @@ with a non-zero exit at the first failure, it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written CUDA kernels from ``skdownscale_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together;
+   one ``nvcc`` per source, all started together, and prints each kernel's
+   registers, shared memory and spills from ``-Xptxas -v``;
 3. holds the segment count-sort (K1) and segment rank-map (K2) kernels
    bitwise against their plain PyTorch versions on the card, at the main
    path's shape (131,072 rows of 12 segments of 40) and at L = 7, 31, 256
@@ -66,7 +67,8 @@ with a non-zero exit at the first failure, it:
     a threshold (the exceedance probability and the best / sample analog
     bitwise, the means and deviations within float32 reduction error), K8
     at f = 1, 2, 3, 5 (the count row bitwise, the sums and the Newton
-    probability within float32 error), and times both;
+    probability within float32 error), and times both, with each launch's
+    warps a block and resident warps an SM;
 13. config 4a and 4b, this slice's main path: fits and predicts
     ``PointWiseDownscaler(PureAnalog(n_analogs=200, kind="mean_analogs",
     thresh=13.0))`` and ``(AnalogRegression(n_analogs=200, thresh=13.0))`` on
@@ -1114,7 +1116,8 @@ def within(got, want, rtol, atol, what):
 
 
 def gard_kernel_phase(rng, dev):
-    """K7 and K8 against their plain versions at config 4's shape, and timed.
+    """K7 and K8 against their plain versions at config 4's shape, and timed,
+    each with its launch geometry (warps a block, resident warps an SM).
     K7: every kind with and without the threshold (k = 1 for best analog,
     as the model runs it); the exceedance probability and the best / sample
     analog bitwise, mean, weighted mean and deviation within rtol 1e-5 +
@@ -1129,6 +1132,12 @@ def gard_kernel_phase(rng, dev):
     from skdownscale_tpu_torch.kernels import knn as KN
 
     C, n, m, k = G_CELLS, G_FIT, G_PRED, G_K
+
+    def geometry(kernel, f, kk):
+        g = KN.launch_geometry(kernel, C, n, m, f, kk)
+        return (f"{'staged' if g['staged'] else 'global'}, {g['warps']} warps a block, "
+                f"{g['smem_bytes']} B shared a block, {g['resident_warps']} resident warps an SM")
+
     results = {}
     X, y, Xq = (torch.from_numpy(a).to(dev) for a in gard_arrays(rng, C, n, m, G_F))
     rand = torch.from_numpy(rng.integers(0, k, (C, m)).astype(np.int32)).to(dev)
@@ -1150,7 +1159,8 @@ def gard_kernel_phase(rng, dev):
             b_ms, b_by = bound(n_bytes, k7_ops(C, n, m, G_F, kk))
             print(f"kernel pure_analog_stats {kind} thresh={thresh} ({C} cells, n={n}, m={m}, f={G_F}, "
                   f"k={kk}): max |diff| {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}), {C * m / ms / 1e3:.3f} M queries/s")
+                  f"bound {b_ms:.4f} ms ({b_by}), {C * m / ms / 1e3:.3f} M queries/s; "
+                  f"{geometry('pure_analog_stats', G_F, kk)}")
             if (kind, thresh) == ("mean_analogs", 13.0):  # config 4a goes in the JSON line
                 results["pure_analog_stats"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -1173,7 +1183,8 @@ def gard_kernel_phase(rng, dev):
         b_ms, b_by = bound(n_bytes, k8_ops(C, n, m, f, k, newton))
         print(f"kernel analog_regression_stats f={f} thresh={thresh} ({C} cells, n={n}, m={m}, k={k}, "
               f"{newton} queries with a Newton fit): max |diff| stats {err_s:.3g}, prob {err_p:.3g}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{geometry('analog_regression_stats', f, k)}")
         if (f, thresh) == (2, 13.0):  # config 4b goes in the JSON line
             results["analog_regression_stats"] = {"max_abs_err": max(err_s, err_p), "ms": ms,
                                                   "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -1741,7 +1752,7 @@ def main() -> int:
         for name, res in build.build_all().items():
             print(f"build: {res.path} in {res.seconds:.2f} s")
             for line in res.log.splitlines():
-                if "registers" in line or "Compiling entry" in line:
+                if "registers" in line or "Compiling entry" in line or "spill" in line:
                     print(f"build: {line.strip()}")
         print(f"build: every source in {time.perf_counter() - t0:.2f} s")
         dev = torch.device("cuda", 0)

@@ -65,7 +65,11 @@ def build(name: str) -> BuildResult:
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     with _locks[name]:
         if os.path.exists(lib):
-            return BuildResult(lib, 0.0, "up to date")
+            try:  # the build's own log, kept beside the library
+                with open(f"{lib}.log") as f:
+                    return BuildResult(lib, 0.0, f.read())
+            except OSError:
+                return BuildResult(lib, 0.0, "up to date")
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
@@ -79,6 +83,8 @@ def build(name: str) -> BuildResult:
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
+        with open(f"{lib}.log", "w") as f:
+            f.write(log)
         os.replace(tmp, lib)
         return BuildResult(lib, seconds, log)
 

@@ -19,6 +19,15 @@ distances, a stable sort, a gather of the selected analogs, reductions; they
 work on blocks of cells so that a (cells, queries, train) block stays near
 :data:`PLAIN_BLOCK_ELEMS` elements.
 
+The kernels stage a cell's training rows in shared memory once per block
+and select a query's analogs in two passes over them: an 11-bit first digit
+of each distance counted as it is computed, then one compaction that takes
+the rows of lower bins outright and ranks the few rows of the k-th bin on a
+short candidate list; further digit passes run only where that bin
+overflows the list (``csrc/knn.cu``, modelled in
+``tests/test_torch_knn_select.py``).  :func:`launch_geometry` reports the
+shape a launch takes.
+
 Dispatch: tensors on the CPU go to the plain version; CUDA float32 tensors
 launch the kernel, which takes 1 <= f <= 6 features (K7) or 1 <= f <= 5
 (K8) and k <= 4096, and raises on anything else; other tensors raise.
@@ -47,6 +56,7 @@ __all__ = [
     "pure_analog_stats_plain",
     "analog_regression_stats",
     "analog_regression_stats_plain",
+    "launch_geometry",
 ]
 
 KINDS = ("best_analog", "sample_analogs", "weight_analogs", "mean_analogs")
@@ -66,9 +76,29 @@ def _lib() -> ctypes.CDLL:
     lib.sdt_pure_analog_stats.restype = i32
     lib.sdt_analog_regression_stats.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, f32, i32, vp]
     lib.sdt_analog_regression_stats.restype = i32
+    lib.sdt_knn_geometry.argtypes = [i32, i32, i32, i32, i32, i32, vp]
+    lib.sdt_knn_geometry.restype = i32
     lib.sdt_error_string.argtypes = [i32]
     lib.sdt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+GEOMETRY_KEYS = ("staged", "warps", "tiles", "blocks_per_sm", "smem_bytes", "resident_warps",
+                 "first_bits", "cap")
+
+
+def launch_geometry(kernel: str, C: int, n: int, m: int, f: int, k: int) -> dict:
+    """The launch K7 (``"pure_analog_stats"``) or K8
+    (``"analog_regression_stats"``) takes at these sizes on the current
+    card, launching nothing: whether the cell is staged in shared memory,
+    warps a block, query tiles a cell, blocks and resident warps an SM,
+    shared bytes a block, the first digit's bits and the candidate list's
+    capacity.  Needs the card."""
+    lib = _lib()
+    res = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    which = ("pure_analog_stats", "analog_regression_stats").index(kernel)
+    check_launch(lib, lib.sdt_knn_geometry(which, C, n, m, f, k, ctypes.addressof(res)), kernel)
+    return dict(zip(GEOMETRY_KEYS, res))
 
 
 def n_stat_rows(f: int) -> int:

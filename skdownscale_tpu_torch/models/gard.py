@@ -91,11 +91,12 @@ def pure_analog_predict_batched(X_train, y_train, Xq, rand_inds, *, k: int, kind
     (C, m, 3).
 
     CPU tensors run the plain version of K7; CUDA float32 tensors with
-    f <= 6 and k <= 4096 launch the fused K7 kernel (distances, exact rank-k
-    selection and the analog statistics in one pass, no distance matrix in
-    device memory); any other CUDA tensor (more features, a larger k,
-    float64) takes the torch route, :func:`pure_analog_predict` (kNN by
-    distance blocks and a sort, a gather, reductions)."""
+    f <= 6 and k <= 4096 launch the fused K7 kernel (the cell's rows staged
+    in shared memory, distances and the exact rank-k selection in two passes
+    over them, then the analog statistics; no distance matrix in device
+    memory); any other CUDA tensor (more features, a larger k, float64)
+    takes the torch route, :func:`pure_analog_predict` (kNN by distance
+    blocks and a sort, a gather, reductions)."""
     if X_train.device.type == "cuda" and not _kernel_gate(X_train, k, _K.MAX_FEATURES_PURE):
         return pure_analog_predict(X_train, y_train, Xq, rand_inds, k=k, kind=kind, thresh=thresh)
     if X_train.device.type == "cuda":
@@ -161,8 +162,9 @@ def analog_regression_predict_batched(X_train, y_train, Xq, *, k: int, thresh=No
 
     CPU tensors run the plain version of K8 and :func:`_ar_finish`; CUDA
     float32 tensors with 1 <= f <= 5 and k <= 4096 launch the fused K8
-    kernel (selection, the local weighted-OLS sums and the logistic fit in
-    one pass) and then :func:`_ar_finish`; any other CUDA tensor takes the
+    kernel (the two-pass selection over the cell's staged rows, then the
+    local weighted-OLS sums and the logistic fit over the k members) and
+    then :func:`_ar_finish`; any other CUDA tensor takes the
     torch route, :func:`analog_regression_predict`."""
     f = X_train.shape[-1]
     if X_train.device.type == "cuda" and not _kernel_gate(X_train, k, _K.MAX_FEATURES_REGRESSION):

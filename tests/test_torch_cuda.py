@@ -361,10 +361,16 @@ def test_quantile_mapper_grid_launches_k2_and_single_cell_runs_on_the_card(cuda_
 
 def _gard_case(rng, C, n, m, f, dup=False, on_train=False):
     """float32 X ~ N(10, 3), y = 0.2 N(10, 3) + 13 (bench.py:1059-1064);
-    ``dup`` repeats every training row (exact distance ties), ``on_train``
-    puts every query on a training point (zero distances)."""
+    ``dup`` repeats every training row (exact distance ties), or with
+    ``"const"`` makes feature 0 constant and rounds the others to whole
+    numbers (every row in a few distance bins: the candidate list
+    overflows); ``on_train`` puts every query on a training point (zero
+    distances)."""
     X = rng.normal(10, 3, (C, n, f)).astype(np.float32)
-    if dup:
+    if dup == "const":
+        X[..., 0] = 10.0
+        X[..., 1:] = np.round(X[..., 1:])
+    elif dup:
         X[:, n // 2 : 2 * (n // 2)] = X[:, : n // 2]
     y = (0.2 * rng.normal(10, 3, (C, n)) + 13).astype(np.float32)
     Xq = rng.normal(10, 3, (C, m, f)).astype(np.float32)
@@ -374,8 +380,12 @@ def _gard_case(rng, C, n, m, f, dup=False, on_train=False):
 
 
 # (C, n, m, f, k, dup, on_train): duplicated rows, queries on training
-# points, n not a multiple of 32, k = 1, k = n, f = 1 and 6, and a training
-# record whose distances do not fit in shared memory (recomputed per pass)
+# points, n not a multiple of 32, k = 1, k = n, f = 1 and 6, training
+# records too long to stage in shared memory (read from global memory; the
+# second also past 16-bit counts); then a constant feature (one distance a
+# query at f = 1, a few bins at f = 3: the candidate list overflows), f = 6
+# and f = 5 with k = 4,096 at the shared-memory edge (the cell staged beside
+# one warp), m = 67 (not a multiple of the block's warps)
 _GARD_SHAPES = [
     (3, 70, 23, 2, 20, False, False),
     (2, 97, 41, 1, 1, True, True),
@@ -384,6 +394,12 @@ _GARD_SHAPES = [
     (4, 1001, 65, 2, 200, True, True),
     (2, 3650, 9, 5, 4096 - 500, False, False),
     (2, 60_000, 5, 2, 300, True, True),
+    (3, 500, 37, 1, 100, "const", False),
+    (2, 3000, 21, 3, 200, "const", True),
+    (2, 7570, 9, 6, 4096, False, False),
+    (2, 8832, 7, 5, 4096, True, False),
+    (1, 3650, 67, 2, 200, False, False),
+    (2, 70_000, 6, 3, 500, False, True),
 ]
 
 
@@ -435,6 +451,29 @@ def test_analog_regression_kernel_vs_plain(cuda_device, rng, C, n, m, f, k, dup,
     assert torch.equal(stats[..., 0], ws[..., 0])
     npt.assert_allclose(stats.cpu().numpy(), ws.cpu().numpy(), rtol=1e-5, atol=1e-3)
     npt.assert_allclose(prob.cpu().numpy(), wp.cpu().numpy(), rtol=0, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_knn_launch_geometry_stages_what_fits(cuda_device):
+    """Config 4's cell and the cells at the shared-memory edge (one warp's
+    counters and k = 4,096 members beside the staged rows fill the 232,448
+    bytes a block may take) are staged, one row more or a 60,000-row cell is
+    not; every shape gets at least one block an SM."""
+    from skdownscale_tpu_torch.kernels import knn as KN
+
+    for kernel, (C, n, m, f, k), staged in [
+        ("pure_analog_stats", (2048, 3650, 365, 2, 200), 1),
+        ("analog_regression_stats", (2048, 3650, 365, 2, 200), 1),
+        ("pure_analog_stats", (2, 7570, 9, 6, 4096), 1),
+        ("pure_analog_stats", (2, 7571, 9, 6, 4096), 0),
+        ("analog_regression_stats", (2, 8832, 7, 5, 4096), 1),
+        ("analog_regression_stats", (2, 8833, 7, 5, 4096), 0),
+        ("pure_analog_stats", (2, 60_000, 5, 2, 300), 0),
+    ]:
+        g = KN.launch_geometry(kernel, C, n, m, f, k)
+        assert g["staged"] == staged, (kernel, n, g)
+        assert g["blocks_per_sm"] >= 1 and 1 <= g["warps"] <= min(m, 16)
+        assert g["resident_warps"] == g["warps"] * g["blocks_per_sm"]
 
 
 @pytest.mark.cuda

@@ -21,7 +21,8 @@ with a non-zero exit at the first failure, it:
    at config 5's shape (32,768 cells x 7,305 days, 31 windows), on a
    10-year ``noleap`` record and on a 3-year record whose entering buckets
    land inside value gaps, with the same adversarial values plus all-NaN
-   cells, and times both;
+   cells, and times both, with each launch's shape (a warp or a block a
+   cell, threads and shared bytes a block, resident blocks an SM);
 5. config 2: fits and predicts ``PointWiseDownscaler(BcsdTemperature(
    return_anoms=False), device="cuda")`` on a 131,072-cell x 480-month
    float32 grid with about 5% NaN cells (the dense monthly path), checks
@@ -48,7 +49,9 @@ with a non-zero exit at the first failure, it:
    inputs with ties, +inf pads, +-1e20 sentinels, NaN knot rows, knot hits
    and NaN / +-inf queries, and at config 8's fut block (6,144 rows, each
    with its own 3,650 knots and values, 3,650 queries, taken from a
-   one-rotation ``mbcn_correct``), and times both;
+   one-rotation ``mbcn_correct``), and times both, with each launch's
+   shape (staged or not, threads and shared bytes a block, resident blocks
+   an SM, blocks in the persistent grid);
 9. config 9b, this slice's main path: fits ``PointWiseDownscaler(
    TrendAwareQuantileMappingRegressor(QuantileMappingReressor(
    extrapolate="both")))`` over 1,460 days from 1990-01-01 and predicts 730
@@ -106,10 +109,18 @@ The line before the last is a JSON object with each kernel's launches by
 its path, error, times, bound and the one PyTorch call that computes the
 same function (where there is one); the last line is
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --trials`` runs only the design trials of K5 and
+K6: each trial switch of ``csrc/slide_sort.cu`` and ``csrc/interp.cu``
+(``TRIALS``) is built as a variant, held bitwise against the default
+build, and timed beside it in turns at config 5 (K5) and at config 8's fut
+block and config 9b's two calls (K6), with each build's registers and
+spills.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -420,10 +431,14 @@ def slide_kernel_phase(rng, dev):
         out_gb = got.numel() * 4 / 1e9
         # reads each series once, writes each window slot once
         b_ms, b_by = bound(C * T * 4 + got.numel() * 4, got.numel() * np.log2(plan.Lto))
+        geo = S.launch_geometry(plan)
         print(f"kernel slide_sorted_windows {name} ({C} cells x {T} days, {len(plan.consulted)} "
               f"windows, Lt={plan.Lt}, Wp={len(plan.w0_idx)}, BW={plan.add_idx.shape[1]}, "
               f"n_rows={n_rows}): bitwise equal to plain, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), output {out_gb:.3f} GB ({out_gb / ms:.3f} TB/s written)")
+              f"bound {b_ms:.4f} ms ({b_by}), output {out_gb:.3f} GB ({out_gb / ms:.3f} TB/s written); "
+              f"{'a block' if geo['block_route'] else 'a warp'} a cell, {geo['threads']} threads a "
+              f"block, {geo['smem_bytes']} B shared a block, {geo['blocks_per_sm']} resident blocks an "
+              f"SM, {geo['items']} window-0 keys a lane")
         if name == "config 5":  # the main path's shape goes in the JSON line
             results["slide_sorted_windows"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -865,15 +880,118 @@ def interp_kernel_phase(dev):
         n_bytes = 4 * (xp.numel() + fp.numel() + q.numel() + got.numel())
         b_ms, b_by = bound(n_bytes, B * Q * (np.ceil(np.log2(L)) + 15))
         shared = "fp" if fp.shape[0] == 1 else "xp" if xp.shape[0] == 1 else "no table"
+        geo = I.launch_geometry(xp, fp, q)
         print(f"kernel batched_interp {name} ({B} rows, L={L}, Q={Q}, shared {shared}): bitwise equal "
               f"to plain, NaN out {int(torch.isnan(got).sum())}, kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB), "
-              f"{n_bytes / ms / 1e9:.3f} TB/s moved")
+              f"{n_bytes / ms / 1e9:.3f} TB/s moved; {'staged' if geo['staged'] else 'device memory'}, "
+              f"{geo['threads']} threads a block, {geo['smem_bytes']} B shared a block, "
+              f"{geo['blocks_per_sm']} resident blocks an SM, grid {geo['grid']}")
         if name == "config 9b call 1":  # the main path's first call goes in the JSON line
             results["batched_interp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         del xp, fp, q, got
     return results
+
+
+def ptxas_of(log, kernel):
+    """Registers and spills that ``-Xptxas -v`` reported for the first
+    kernel whose mangled name holds ``kernel``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            spill = used = ""
+            for later in lines[i + 1:]:
+                if "spill stores" in later:
+                    spill = later.strip()
+                if "Used" in later and "registers" in later:
+                    used = later.split(":", 1)[-1].strip()
+                    break
+            return f"{used}; {spill}"
+    return f"no ptxas entry for {kernel}"
+
+
+# the trial switches of csrc/slide_sort.cu and csrc/interp.cu, each built
+# as a variant and timed beside the default build by ``--trials``
+TRIALS = {
+    "slide_sort": (("8 cells a block", ("SDT_K5_CELLS_PER_BLOCK=8",)),
+                   ("buckets loaded a step ahead", ("SDT_K5_PREFETCH=1",)),
+                   ("no floor on resident blocks", ("SDT_K5_MIN_BLOCKS=1",)),
+                   ("at least 8 resident blocks an SM", ("SDT_K5_MIN_BLOCKS=8",))),
+    "interp": (("staged wherever it fits", ("SDT_K6_ROUTE=1",)),
+               ("device memory at every shape", ("SDT_K6_ROUTE=2",)),
+               ("staged, 256 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=256")),
+               ("staged, 512 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=512"))),
+}
+
+
+def trials(dev):
+    """``--trials``: every variant of ``TRIALS`` against the default build
+    of its source, K5 at config 5 and K6 at config 8's fut block and config
+    9b's two calls: outputs bitwise equal to the default's, CUDA-event
+    times in turns (default, each variant, default again) and each launch's
+    shape."""
+    import concurrent.futures
+
+    import torch
+
+    from skdownscale_tpu_torch.kernels import build
+    from skdownscale_tpu_torch.kernels import interp as I
+    from skdownscale_tpu_torch.kernels import slide_sort as S
+    from skdownscale_tpu_torch.models.batched import GROUP_CHUNK
+    from skdownscale_tpu_torch.models.slide import build_slide_plan
+    from skdownscale_tpu_torch.utils.timeindex import TimeIndex, padded_doy_groups
+
+    jobs = [(src, label, defines) for src, variants in TRIALS.items()
+            for label, defines in (("default", ()), *variants)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {(src, label): pool.submit(build.build, src, defines) for src, label, defines in jobs}
+        builds = {key: f.result() for key, f in futures.items()}
+    libs = {key: ctypes.CDLL(res.path) for key, res in builds.items()}
+    print(f"trials: {len(jobs)} builds in {time.perf_counter() - t0:.2f} s")
+
+    def turns(src, run, check, describe, kernel):
+        names = ["default"] + [label for label, _ in TRIALS[src]] + ["default"]
+        want = run(libs[(src, "default")])
+        torch.cuda.synchronize()
+        for label in names[1:-1]:
+            check(run(libs[(src, label)]), want, label)
+        for i, label in enumerate(names):
+            ms = cuda_ms(lambda: run(libs[(src, label)]), iters=10, warmup=2)
+            again = " (again)" if i == len(names) - 1 else ""
+            print(f"trial {src} {label}{again}: {ms:.4f} ms; {describe(libs[(src, label)])}; "
+                  f"{ptxas_of(builds[(src, label)].log, kernel)}")
+
+    rng = np.random.default_rng(SEED)
+    for src in TRIALS:
+        for label, _ in (("default", ()), *TRIALS[src]):
+            (S if src == "slide_sort" else I).declare(libs[(src, label)])
+
+    ti = TimeIndex.from_pandas(daily_index())
+    plan = build_slide_plan(padded_doy_groups(ti), np.arange(31))
+    y = adversarial(rng, D_CELLS, len(ti))
+    y[rng.random(D_CELLS) < 0.01] = np.nan
+    yd = torch.from_numpy(y).to(dev)
+    del y
+    n_rows = -(-len(plan.consulted) // GROUP_CHUNK["daily"]) * GROUP_CHUNK["daily"]
+    print(f"trials K5 config 5 ({D_CELLS} cells x {len(ti)} days, Wp={len(plan.w0_idx)}, "
+          f"BW={plan.add_idx.shape[1]})")
+    items = S.launch_geometry(plan)["items"]
+    turns("slide_sort", lambda lib: S.launch(lib, yd, plan, n_rows),
+          lambda got, want, label: bitwise_err(got, want, f"K5 trial {label}"),
+          lambda lib: str(S.launch_geometry(plan, lib)), f"slide_sorted_windows_kernelILi{items}ELb0E")
+    del yd
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [("config 8 fut block", mbcn_interp_inputs(dev)),
+             ("config 9b call 1", interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 1)),
+             ("config 9b call 2", interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 2))]
+    for name, (xp, fp, q) in cases:
+        print(f"trials K6 {name} ({q.shape[0]} rows, L={xp.shape[1]}, Q={q.shape[1]})")
+        turns("interp", lambda lib: I.launch(lib, xp, fp, q),
+              lambda got, want, label: bitwise_err(got, want, f"K6 {name} trial {label}"),
+              lambda lib: str(I.launch_geometry(xp, fp, q, lib)), "batched_interp_staged_kernel")
 
 
 def quantile_grid(rng, n_cells, side, n_fit, n_pred, y_too=True):
@@ -1748,6 +1866,10 @@ def main() -> int:
     try:
         card = card_line()
         print(card)  # nvidia-smi's own line: name, power limit
+        if sys.argv[1:] == ["--trials"]:
+            trials(torch.device("cuda", 0))
+            print(card)
+            return 0
         t0 = time.perf_counter()
         for name, res in build.build_all().items():
             print(f"build: {res.path} in {res.seconds:.2f} s")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (pointers, sizes and the
 stream as ``void*``), so it compiles in seconds without PyTorch's headers.
 The library goes to ``skdownscale_tpu_torch/_build/`` (ignored by git) under
-a name that carries a hash of the source and the flags, so an edited source
-is never served a stale binary.  Nothing is built at import time: the first
+a name that carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is never served a stale
+binary.  Nothing is built at import time: the first
 wrapper call on a CUDA tensor builds, later calls reuse the loaded library.
 """
 
@@ -35,9 +36,16 @@ NVCC_FLAGS = (
 # every CUDA source of the package, by name (csrc/<name>.cu)
 SOURCES = ("rank_map", "slide_sort", "interp", "knn", "sort_rows")
 
-# one lock per source: two threads never build the same library at once,
-# while different sources build side by side
-_locks = {name: threading.Lock() for name in SOURCES}
+# one lock per library: two threads never build the same library at once,
+# while different sources (or builds of one source with other switches)
+# build side by side
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+
+
+def _lock(lib: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(lib, threading.Lock())
 
 
 class BuildResult(NamedTuple):
@@ -57,13 +65,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` for sm_90a into the build directory."""
+def _headers() -> list[str]:
+    """The shared headers (``csrc/*.cuh``): a source that includes one is
+    rebuilt when it changes."""
+    return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+
+
+def build(name: str, defines: tuple[str, ...] = ()) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` for sm_90a into the build directory;
+    ``defines`` (``"NAME=value"``) set a source's trial switches."""
     src = os.path.join(SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in (src, *_headers()):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    with _locks[name]:
+    with _lock(lib):
         if os.path.exists(lib):
             try:  # the build's own log, kept beside the library
                 with open(f"{lib}.log") as f:
@@ -74,7 +93,7 @@ def build(name: str) -> BuildResult:
         tmp = f"{lib}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            [_nvcc(), *flags, "-o", tmp, src],
             capture_output=True,
             text=True,
             timeout=600,

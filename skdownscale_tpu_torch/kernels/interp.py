@@ -34,19 +34,44 @@ import torch
 
 from . import LAUNCHES, build, check_launch, on_kernel
 
-__all__ = ["LAUNCHES", "batched_interp", "batched_interp_plain"]
+__all__ = ["LAUNCHES", "batched_interp", "batched_interp_plain", "launch_geometry"]
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a build of ``csrc/interp.cu``."""
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.sdt_batched_interp.argtypes = [vp, vp, vp, vp, i64, i32, i32, i64, i64, i64, vp]
+    lib.sdt_batched_interp.restype = i32
+    lib.sdt_interp_geometry.argtypes = [i64, i32, i32, i32, i32, i32, vp]
+    lib.sdt_interp_geometry.restype = i32
+    lib.sdt_error_string.argtypes = [i32]
+    lib.sdt_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """Build (first use only), load and declare ``csrc/interp.cu``."""
-    lib = build.load("interp")
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.sdt_batched_interp.argtypes = [vp, vp, vp, vp, i64, i32, i32, i64, i64, i64, vp]
-    lib.sdt_batched_interp.restype = i32
-    lib.sdt_error_string.argtypes = [i32]
-    lib.sdt_error_string.restype = ctypes.c_char_p
-    return lib
+    """Build (first use only) and load ``csrc/interp.cu``."""
+    return declare(build.load("interp"))
+
+
+GEOMETRY_KEYS = ("staged", "threads", "smem_bytes", "blocks_per_sm", "grid")
+
+
+def launch_geometry(xp: torch.Tensor, fp: torch.Tensor, q: torch.Tensor,
+                    lib: ctypes.CDLL | None = None) -> dict:
+    """The launch K6 (or another build of it, ``lib``) takes for these
+    arguments on the current card, launching nothing: whether the rows are
+    staged in shared memory (or searched in device memory), threads a
+    block, shared bytes a block, resident blocks an SM and blocks in the
+    grid.  Needs the card."""
+    B = _out_rows(xp, fp, q)
+    lib = lib or _lib()
+    res = (ctypes.c_int64 * len(GEOMETRY_KEYS))()
+    rc = lib.sdt_interp_geometry(B, xp.shape[1], q.shape[1], int(xp.shape[0] == 1),
+                                 int(fp.shape[0] == 1), int(q.shape[0] == 1), ctypes.addressof(res))
+    check_launch(lib, rc, "batched_interp")
+    return dict(zip(GEOMETRY_KEYS, res))
 
 
 def _out_rows(xp: torch.Tensor, fp: torch.Tensor, q: torch.Tensor) -> int:
@@ -119,15 +144,23 @@ def batched_interp(xp: torch.Tensor, fp: torch.Tensor, q: torch.Tensor) -> torch
     B = _out_rows(xp, fp, q)
     if not on_kernel(xp, fp, q):
         return batched_interp_plain(xp, fp, q)
+    if B == 0 or q.shape[1] == 0:
+        return q.new_empty((B, q.shape[1]))
+    out = launch(_lib(), xp, fp, q)
+    LAUNCHES["batched_interp"] += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, xp: torch.Tensor, fp: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """One launch of a build of the kernel on checked CUDA float32
+    arguments with rows and queries: the (B, Q) output.  Counts nothing."""
+    B = _out_rows(xp, fp, q)
     L, Q = xp.shape[1], q.shape[1]
     out = torch.empty((B, Q), dtype=q.dtype, device=q.device)
-    if B == 0 or Q == 0:
-        return out
 
     def stride(t):
         return 0 if t.shape[0] == 1 else t.stride(0)
 
-    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.sdt_batched_interp(
@@ -135,5 +168,4 @@ def batched_interp(xp: torch.Tensor, fp: torch.Tensor, q: torch.Tensor) -> torch
             B, L, Q, stride(xp), stride(fp), stride(q), stream,
         )
     check_launch(lib, rc, "batched_interp")
-    LAUNCHES["batched_interp"] += 1
     return out

@@ -35,21 +35,44 @@ import torch
 from ..ops.keys import from_ordered_int, to_ordered_int
 from . import LAUNCHES, build, check_launch, on_kernel
 
-__all__ = ["LAUNCHES", "slide_sorted_windows", "slide_sorted_windows_plain"]
+__all__ = ["LAUNCHES", "launch_geometry", "slide_sorted_windows", "slide_sorted_windows_plain"]
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """Build (first use only), load and declare ``csrc/slide_sort.cu``."""
-    lib = build.load("slide_sort")
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a build of ``csrc/slide_sort.cu``."""
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.sdt_slide_sorted_windows.argtypes = [
         vp, i64, i64, vp, i32, vp, vp, i32, i32, i32, i32, vp, vp,
     ]
     lib.sdt_slide_sorted_windows.restype = i32
+    lib.sdt_slide_geometry.argtypes = [i32, i32, vp]
+    lib.sdt_slide_geometry.restype = i32
     lib.sdt_error_string.argtypes = [i32]
     lib.sdt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (first use only) and load ``csrc/slide_sort.cu``."""
+    return declare(build.load("slide_sort"))
+
+
+GEOMETRY_KEYS = ("block_route", "threads", "cells_per_block", "smem_bytes", "blocks_per_sm",
+                 "items")
+
+
+def launch_geometry(plan, lib: ctypes.CDLL | None = None) -> dict:
+    """The launch K5 (or another build of it, ``lib``) takes for ``plan`` on
+    the current card, launching nothing: whether a cell takes a block
+    (windows above 1,024 keys) or a warp, threads and cells a block, shared
+    bytes a block, resident blocks an SM and window-0 keys a lane.  Needs
+    the card."""
+    lib = lib or _lib()
+    res = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    rc = lib.sdt_slide_geometry(len(plan.w0_idx), plan.add_idx.shape[1], ctypes.addressof(res))
+    check_launch(lib, rc, "slide_sorted_windows")
+    return dict(zip(GEOMETRY_KEYS, res))
 
 
 def _n_rows(plan, n_rows: int | None, T: int) -> int:
@@ -127,18 +150,24 @@ def slide_sorted_windows(y: torch.Tensor, plan, *, n_rows: int | None = None) ->
     rows = _n_rows(plan, n_rows, T)
     lead = y.shape[:-1]
     y2 = y.reshape(-1, T)
-    C = y2.shape[0]
-    out = torch.empty((C, rows * plan.Lto), dtype=y.dtype, device=y.device)
-    if C == 0:
-        return out.reshape(*lead, rows * plan.Lto)
-    w0, add, rem = _plan_dev(plan, y.device)
-    lib = _lib()
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
+    if y2.shape[0] == 0:
+        return y.new_empty((*lead, rows * plan.Lto))
+    out = launch(_lib(), y2, plan, rows)
+    LAUNCHES["slide_sorted_windows"] += 1
+    return out.reshape(*lead, rows * plan.Lto)
+
+
+def launch(lib: ctypes.CDLL, y2: torch.Tensor, plan, rows: int) -> torch.Tensor:
+    """One launch of a build of the kernel on checked (C, T) CUDA float32
+    rows, C > 0: the (C, rows * Lto) output.  Counts nothing."""
+    C, T = y2.shape
+    out = torch.empty((C, rows * plan.Lto), dtype=y2.dtype, device=y2.device)
+    w0, add, rem = _plan_dev(plan, y2.device)
+    with torch.cuda.device(y2.device):
+        stream = torch.cuda.current_stream(y2.device).cuda_stream
         rc = lib.sdt_slide_sorted_windows(
             y2.data_ptr(), C, T, w0.data_ptr(), w0.shape[0], add.data_ptr(), rem.data_ptr(),
             add.shape[1], len(plan.consulted), plan.Lto, rows, out.data_ptr(), stream,
         )
     check_launch(lib, rc, "slide_sorted_windows")
-    LAUNCHES["slide_sorted_windows"] += 1
-    return out.reshape(*lead, rows * plan.Lto)
+    return out

@@ -18,7 +18,7 @@ from skdownscale_tpu_torch.kernels import rank_map as K
 from skdownscale_tpu_torch.kernels import slide_sort as S
 from skdownscale_tpu_torch.models import bcsd as B
 from skdownscale_tpu_torch.models.slide import build_slide_plan
-from skdownscale_tpu_torch.utils.timeindex import TimeIndex, padded_doy_groups
+from skdownscale_tpu_torch.utils.timeindex import PaddedGroups, TimeIndex, padded_doy_groups
 from skdownscale_tpu_torch.xlite import DataArray
 
 
@@ -161,6 +161,68 @@ def test_slide_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         S.slide_sorted_windows(torch.zeros((2, 1600), device=cuda_device)[:, ::2], plan)
 
 
+def _sliding_groups(width, shift, n_groups):
+    """Fit groups of ``width`` members, each ``shift`` steps after the one
+    before: a plan whose buckets hold ``shift`` members."""
+    members = [np.arange(g * shift, g * shift + width) for g in range(n_groups)]
+    T = (n_groups - 1) * shift + width
+    return PaddedGroups.from_member_lists(members, np.arange(n_groups)), T
+
+
+def _long_slide_plans():
+    """(name, plan, T): daily plans of 33, 50 and 100 years (BW 40, 56, 104;
+    Wp 1,064 to 3,208, so window 0 takes the block sort; Lto 1,024, 1,552
+    and 3,104), and a plan of 8,200-member windows (Wp above 8,192)."""
+    out = []
+    for years in (33, 50, 100):
+        ti = TimeIndex.from_pandas(pd.date_range("1950-01-01", periods=int(years * 365.25), freq="D"))
+        out.append((f"{years}y", build_slide_plan(padded_doy_groups(ti), np.arange(31), max_bucket=128), len(ti)))
+    groups, T = _sliding_groups(8200, 100, 6)
+    out.append(("wide", build_slide_plan(groups, np.arange(6), max_bucket=128), T))
+    return out
+
+
+@pytest.mark.cuda
+def test_slide_kernel_long_plans_bitwise_vs_plain(cuda_device, rng):
+    """K5 where window 0 is too long for the warp sort and the buckets take
+    two or four keys a lane, with rows past the last window (n_rows >
+    n_windows): bitwise against the plain version, one launch each."""
+    for name, plan, T in _long_slide_plans():
+        assert plan.add_idx.shape[1] > 32 and len(plan.w0_idx) > 1024 and plan.Lto >= 1024, name
+        assert S.launch_geometry(plan)["block_route"] == 1, name
+        y = _adversarial(rng, 6, T)
+        y[2] = np.nan
+        y[3, ::7] = np.frombuffer(np.int32(0x7FFFFFFF).tobytes(), np.float32)[0]
+        yd = torch.from_numpy(y).to(cuda_device)
+        n_rows = len(plan.consulted) + 3
+        n0 = K.LAUNCHES["slide_sorted_windows"]
+        got = S.slide_sorted_windows(yd, plan, n_rows=n_rows)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["slide_sorted_windows"] == n0 + 1
+        want = S.slide_sorted_windows_plain(yd, plan, n_rows=n_rows)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+@pytest.mark.cuda
+def test_slide_kernel_takes_a_warp_a_cell_up_to_1024(cuda_device):
+    ti = TimeIndex.from_pandas(pd.date_range("1990-01-01", periods=7305, freq="D"))
+    g = S.launch_geometry(build_slide_plan(padded_doy_groups(ti), np.arange(31)))
+    assert g["block_route"] == 0 and g["cells_per_block"] == g["threads"] // 32 and g["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+def test_slide_kernel_raises_on_plans_it_does_not_take(cuda_device):
+    """Buckets above 128 members or windows above 16,384 slots: the launch
+    is refused, nothing is counted."""
+    for width, shift in ((300, 200), (16400, 8)):
+        groups, T = _sliding_groups(width, shift, 3)
+        plan = build_slide_plan(groups, np.arange(3), max_bucket=256)
+        n0 = K.LAUNCHES["slide_sorted_windows"]
+        with pytest.raises(RuntimeError, match="slide_sorted_windows"):
+            S.slide_sorted_windows(torch.zeros((2, T), device=cuda_device), plan)
+        assert K.LAUNCHES["slide_sorted_windows"] == n0
+
+
 def _daily_grid(rng, T, C):
     idx = pd.date_range("1990-01-01", periods=T, freq="D")
     seas = (10 * np.sin(2 * np.pi * (idx.dayofyear.to_numpy() - 1) / 365.25))[:, None]
@@ -273,6 +335,69 @@ def test_interp_kernel_bitwise_vs_plain(cuda_device, rng, B, L, Q, kw, shared):
     want = I.batched_interp_plain(*t)
     assert got.shape == (B, Q)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _interp_tensors(rng, B, L, Q, shared, dev, offset=0, **kw):
+    """K6's arguments on the card, each with ``shared`` of them one row;
+    ``offset`` elements before every row table, so that rows start off
+    their 16-byte lines."""
+    xp, fp, q = _interp_case(rng, B, L, Q, **kw)
+    args = {"xp": xp, "fp": fp, "q": q}
+    for name in shared:
+        args[name] = args[name][:1]
+    out = []
+    for name in ("xp", "fp", "q"):
+        a = np.ascontiguousarray(args[name])
+        flat = torch.zeros(offset + a.size, device=dev)
+        flat[offset:] = torch.from_numpy(a.reshape(-1)).to(dev)
+        out.append(flat[offset:].view(a.shape))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shared", [(), ("xp",), ("fp",), ("q",), ("xp", "fp"), ("xp", "q"), ("fp", "q"), ("xp", "fp", "q")]
+)
+def test_interp_kernel_persistent_grid_with_every_shared_argument(cuda_device, rng, shared):
+    """Every combination of stride-0 arguments, with rows that start 4 bytes
+    past a 16-byte line.  Where a table is per row, the rows are staged on
+    the persistent grid, with more rows than resident blocks (each block
+    walks several rows through both buffers); with both tables shared
+    nothing is staged a row and the kernel takes the device-memory route."""
+    from skdownscale_tpu_torch.kernels import interp as I
+
+    t = _interp_tensors(rng, 3000, 5000, 700, shared, cuda_device, offset=1, nan_rows=True)
+    g = I.launch_geometry(*t)
+    rows = max(a.shape[0] for a in t)
+    staged = not ("xp" in shared and "fp" in shared)
+    assert g["staged"] == staged and (not staged or g["grid"] < rows), g
+    n0 = I.LAUNCHES["batched_interp"]
+    got = I.batched_interp(*t)
+    torch.cuda.synchronize()
+    assert I.LAUNCHES["batched_interp"] == n0 + 1
+    want = I.batched_interp_plain(*t)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,L,Q,staged", [(3, 40_000, 500, 0), (5, 14_000, 300, 1), (7, 3650, 732, 1), (7, 1462, 732, 0)]
+)
+def test_interp_kernel_long_rows_and_fewer_rows_than_blocks(cuda_device, rng, B, L, Q, staged):
+    """Rows too long to stage twice keep the route through device memory,
+    and so do rows short enough for L1 to hold those of every resident
+    block; a staged grid of fewer rows than resident blocks takes one block
+    a row."""
+    from skdownscale_tpu_torch.kernels import interp as I
+
+    t = _interp_tensors(rng, B, L, Q, (), cuda_device, offset=3, nan_rows=True)
+    g = I.launch_geometry(*t)
+    assert g["staged"] == staged and (not staged or g["grid"] == B), g
+    n0 = I.LAUNCHES["batched_interp"]
+    got = I.batched_interp(*t)
+    torch.cuda.synchronize()
+    assert I.LAUNCHES["batched_interp"] == n0 + 1
+    assert torch.equal(got.view(torch.int32), I.batched_interp_plain(*t).view(torch.int32))
 
 
 @pytest.mark.cuda

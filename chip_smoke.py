@@ -14,9 +14,16 @@ with a non-zero exit at the first failure, it:
    registers, shared memory and spills from ``-Xptxas -v``;
 3. holds the segment count-sort (K1) and segment rank-map (K2) kernels
    bitwise against their plain PyTorch versions on the card, at the main
-   path's shape (131,072 rows of 12 segments of 40) and at L = 7, 31, 256
-   with one segment per row, on seeded inputs with NaN, -NaN, +-0, +-inf and
-   heavy ties, and times both with CUDA events;
+   path's shape (131,072 rows of 12 segments of 40), at L = 7, 31, 256
+   with one segment per row, at config 5's K2 shape (its streaming
+   predict's chunk: valid cells x 8 groups x Lq 240), at each route edge of
+   ``csrc/rank_map.cu`` (L = 64 / 65, 256 / 257, 1,024 / 1,025, 16,384 /
+   16,385) and
+   at L = 55,152 (one daily series of 1950-2100 a row, K2's search route),
+   on seeded inputs with NaN, -NaN, +-0, +-inf and heavy ties, times both
+   with CUDA events (not at the edges) beside ``torch.sort`` of the same
+   rows, and prints each route's launch shape (threads a block, keys a
+   lane, shared bytes, resident blocks an SM, registers and spills);
 4. holds the sliding sorted window (K5) bitwise against its plain version
    at config 5's shape (32,768 cells x 7,305 days, 31 windows), on a
    10-year ``noleap`` record and on a 3-year record whose entering buckets
@@ -60,6 +67,8 @@ with a non-zero exit at the first failure, it:
    device memory and stages;
 10. config 9a: ``QuantileMapper(detrend=True)`` fit + ``transform`` on the
     same data (K2 with one 730-long segment a row), with K2's time there;
+    then the same estimator on 64 cells of daily data from 1950-01-01 to
+    2100-12-31 (K2 at L = 55,152) against the CPU float64 path;
 11. config 3: ``EquidistantCdfMatcher(kind="difference", extrapolate="both")``
     on 16,384 cells fit over 3,650 days, predicting 3,650 days (the
     equal-length identity branch) and 1,825 days (host bracket tables); no
@@ -110,12 +119,15 @@ its path, error, times, bound and the one PyTorch call that computes the
 same function (where there is one); the last line is
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --trials`` runs only the design trials of K5 and
-K6: each trial switch of ``csrc/slide_sort.cu`` and ``csrc/interp.cu``
-(``TRIALS``) is built as a variant, held bitwise against the default
-build, and timed beside it in turns at config 5 (K5) and at config 8's fut
-block and config 9b's two calls (K6), with each build's registers and
-spills.
+``python3 chip_smoke.py --trials [source ...]`` runs only the design
+trials of K5, K6 and K1 / K2 (or of the named sources: ``slide_sort``,
+``interp``, ``rank_map``): each trial switch of ``csrc/slide_sort.cu``,
+``csrc/interp.cu`` and ``csrc/rank_map.cu`` (``TRIALS``) is built as a
+variant, held bitwise against the default build, and timed beside it in
+turns at config 5 (K5), at config 8's fut block and config 9b's two calls
+(K6), and at config 2's shape and config 5's K2 shape (K1, K2), config
+9a's rows and 20-year daily rows (K2), with each build's launch shape,
+registers and spills.
 """
 
 from __future__ import annotations
@@ -151,6 +163,15 @@ TOL_P999, TOL_SHARE, TOL_MAX = 1e-3, 1e-3, 5.0
 TOL_Q = (2e-3, 5e-3, 5.0)
 # (rows, segments per row, segment length): the main path's, then G=1 forms
 KERNEL_SHAPES = [(N_CELLS, 12, 40), (65_536, 1, 7), (65_536, 1, 31), (16_384, 1, 256)]
+# K1 and K2 at each route edge of csrc/rank_map.cu: the packed routes'
+# longest L and one above (K1 64 / 65, K2 256 / 257), the warp route's
+# 1,024 / 1,025 and the block route's 16,384 / 16,385 (bitwise, not timed)
+EDGE_SHAPES = [(4_096, 4, 64), (4_096, 4, 65), (2_048, 2, 256), (2_048, 2, 257),
+               (512, 1, 1_024), (512, 1, 1_025), (128, 1, 16_384), (128, 1, 16_385)]
+# K2 with one daily series of 1950-01-01 to 2100-12-31 a row (L = 55,152,
+# the search route), and the QuantileMapper grid of that length
+LONG_SHAPE = (300, 1, 55_152)
+LONG_CELLS, LONG_SIDE = 64, 8
 # config 9 (bench.py:583-659): 65,536 cells, fit 4 y daily, predict 2 y
 Q_CELLS, Q_SIDE, Q_FIT, Q_PRED = 65_536, 256, 1_460, 730
 # config 3 (ROADMAP Queue 1 item 7): QDM, 16,384 cells, fit 10 y daily
@@ -338,46 +359,92 @@ def bitwise_err(a, b, what):
     return err
 
 
-def kernel_phase(rng, dev):
-    import torch
+def rank_map_ptxas(kernel, geo):
+    """The ``-Xptxas -v`` line of the kernel that a K1 / K2 launch of
+    geometry ``geo`` runs first, as a mangled-name fragment."""
+    items = geo["items"]
+    return {"packed": f"packed_kernelILb{int(kernel == 'count_sort_segments')}E",
+            "warp": f"{'count_sort' if kernel == 'count_sort_segments' else 'rank_map'}_warp_kernelILi{items}E",
+            "block": f"rank_map_block_kernelILi{items}E",
+            "search": f"sort_chunks_kernelILi{items}E"}[geo["route"]]
 
+
+def describe_rank_map(kernel, L, log, lib=None):
+    """K1 / K2's route and launch shape at length ``L`` (of the default
+    build, or of ``lib``), with registers and spills from its build log."""
     from skdownscale_tpu_torch.kernels import rank_map as K
 
+    geo = K.launch_geometry(kernel, L, lib)
+    return (f"route {geo['route']}, {geo['threads']} threads a block, {geo['items']} "
+            f"{'elements a thread' if geo['route'] == 'packed' else 'keys a lane'}, "
+            f"{geo['smem_bytes']} B shared a block, {geo['blocks_per_sm']} resident blocks an SM; "
+            f"{ptxas_of(log, rank_map_ptxas(kernel, geo))}")
+
+
+def config5_k2_shape():
+    """K2's shape in config 5's streaming predict: (valid cells, segments of
+    one group chunk, Lq of the predict plan)."""
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.models.batched import GROUP_CHUNK
+
+    est = sdt.BcsdTemperature(time_grouper="daily_nasa-nex", return_anoms=False)
+    index = daily_index()
+    plan = est._predict_plan(est._fit_groups(index), index)
+    return round(D_CELLS * (1 - NAN_CELL_SHARE)), GROUP_CHUNK["daily"], plan.transform.indices.shape[1]
+
+
+def kernel_phase(rng, dev):
+    """K1 and K2 bitwise against their plain versions at KERNEL_SHAPES,
+    config 5's K2 shape, the route edges (EDGE_SHAPES) and LONG_SHAPE, with
+    each route's launch shape; timed at all but the edges."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import build
+    from skdownscale_tpu_torch.kernels import rank_map as K
+
+    log = build.build("rank_map").log
+    shapes = [(*s, True) for s in (*KERNEL_SHAPES, config5_k2_shape())]
+    shapes += [(*s, False) for s in EDGE_SHAPES] + [(*LONG_SHAPE, True)]
     results = {}
-    for B, G, L in KERNEL_SHAPES:
+    for B, G, L, timed in shapes:
         x = torch.from_numpy(adversarial(rng, B * G, L).reshape(B, G * L)).to(dev)
-        res = torch.from_numpy(
-            np.sort(rng.normal(0.0, 1.0, (B * G, L)).astype(np.float32), axis=1).reshape(B, G * L)
-        ).to(dev)
-        k1 = K.count_sort_segments(x, L)
-        k2 = K.rank_map_segments(x, res, L)
-        torch.cuda.synchronize()
-        e1 = bitwise_err(k1, K.count_sort_segments_plain(x, L), f"K1 B={B} G={G} L={L}")
-        e2 = bitwise_err(k2, K.rank_map_segments_plain(x, res, L), f"K2 B={B} G={G} L={L}")
-        t = {
-            "count_sort_segments": (cuda_ms(lambda: K.count_sort_segments(x, L)),
-                                    cuda_ms(lambda: K.count_sort_segments_plain(x, L))),
-            "rank_map_segments": (cuda_ms(lambda: K.rank_map_segments(x, res, L)),
-                                  cuda_ms(lambda: K.rank_map_segments_plain(x, res, L))),
-        }
-        # the one PyTorch call that sorts every segment (NaN and -0 order differ)
-        library = {"count_sort_segments": cuda_ms(lambda: torch.sort(x.view(-1, L), dim=-1)),
-                   "rank_map_segments": None}
+        res = torch.from_numpy(rng.normal(0.0, 1.0, (B * G, L)).astype(np.float32)).to(dev)
+        res = torch.sort(res, dim=1).values.reshape(B, G * L)  # the values np.sort gives
+        runs = {"rank_map_segments": (lambda: K.rank_map_segments(x, res, L),
+                                      lambda: K.rank_map_segments_plain(x, res, L))}
+        if L <= K.COUNT_SORT_MAX_LEN:
+            runs["count_sort_segments"] = (lambda: K.count_sort_segments(x, L),
+                                           lambda: K.count_sort_segments_plain(x, L))
+        n = B * G * L
         # K1 reads and writes each key once, and a sort needs n log2 L
         # compares; K2 reads the queries and results and writes the output
-        n = B * G * L
         n_bytes = {"count_sort_segments": 8 * n, "rank_map_segments": 12 * n}
-        for name, err in (("count_sort_segments", e1), ("rank_map_segments", e2)):
-            ms, plain_ms = t[name]
-            b_ms, b_by = bound(n_bytes[name], n * np.log2(L))
-            lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
-            print(f"kernel {name} B={B} G={G} L={L}: bitwise equal to plain, "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"one PyTorch call {lib}")
+        # the one PyTorch call that sorts every segment: K1's function but
+        # for its NaN and -0 order; for K2 it sorts only
+        sort_ms = cuda_ms(lambda: torch.sort(x.view(-1, L), dim=-1), iters=5, warmup=1) if timed else None
+        for name, (kernel, plain) in runs.items():
+            _check(K.launch_geometry(name, L)["route"] == K.route(name, L),
+                   f"{name} L={L}: the build's route is not kernels/rank_map.route's")
+            got = kernel()
+            torch.cuda.synchronize()
+            err = bitwise_err(got, plain(), f"{name} B={B} G={G} L={L}")
+            del got
+            shape = describe_rank_map(name, L, log)
+            if not timed:
+                print(f"kernel {name} B={B} G={G} L={L}: bitwise equal to plain; {shape}")
+                continue
+            iters = 5 if L > 1_024 else 20
+            ms, plain_ms = cuda_ms(kernel, iters=iters), cuda_ms(plain, iters=iters)
+            b_ms, b_by = bound(n_bytes[name], n * np.log2(L) if L > 1 else n)
+            one = (f"torch.sort {sort_ms:.4f} ms" if name == "count_sort_segments"
+                   else f"torch.sort of the same rows {sort_ms:.4f} ms (sorts only, not the same function)")
+            print(f"kernel {name} B={B} G={G} L={L}: bitwise equal to plain, kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {one}; {shape}")
             if (G, L) == (12, 40):  # the main path's shape goes in the JSON line
                 results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[name]}
-        del x, res, k1, k2
+                                 "bound_ms": b_ms, "bound_by": b_by,
+                                 "library_ms": sort_ms if name == "count_sort_segments" else None}
+        del x, res
     return results
 
 
@@ -911,8 +978,9 @@ def ptxas_of(log, kernel):
     return f"no ptxas entry for {kernel}"
 
 
-# the trial switches of csrc/slide_sort.cu and csrc/interp.cu, each built
-# as a variant and timed beside the default build by ``--trials``
+# the trial switches of csrc/slide_sort.cu, csrc/interp.cu and
+# csrc/rank_map.cu, each built as a variant and timed beside the default
+# build by ``--trials``
 TRIALS = {
     "slide_sort": (("8 cells a block", ("SDT_K5_CELLS_PER_BLOCK=8",)),
                    ("buckets loaded a step ahead", ("SDT_K5_PREFETCH=1",)),
@@ -922,36 +990,59 @@ TRIALS = {
                ("device memory at every shape", ("SDT_K6_ROUTE=2",)),
                ("staged, 256 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=256")),
                ("staged, 512 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=512"))),
+    "rank_map": (("one key a thread on the packed route", ("SDT_RANK_PACKED_ITEMS=1",)),
+                 ("two keys a thread on the packed route", ("SDT_RANK_PACKED_ITEMS=2",)),
+                 ("512 threads a packed block", ("SDT_RANK_PACKED_THREADS=512",)),
+                 ("compares as the compiler forms them", ("SDT_RANK_COUNT=1",)),
+                 ("K1 with the stable rank", ("SDT_K1_STABLE=1",)),
+                 ("K1's packed route up to 256", ("SDT_K1_SHORT_MAX=256",)),
+                 ("K2's packed route up to 64", ("SDT_K2_SHORT_MAX=64",)),
+                 ("every L on the radix routes", ("SDT_K1_SHORT_MAX=0", "SDT_K2_SHORT_MAX=0")),
+                 ("run ends by a shuffle scan", ("SDT_RANK_RUN_END=0",)),
+                 ("no floor on K2's warp route's resident blocks", ("SDT_RANK_WARP_MIN_BLOCKS=1",)),
+                 ("K2's warp route at 6 resident blocks an SM", ("SDT_RANK_WARP_MIN_BLOCKS=6",)),
+                 ("the search route above the packed route", ("SDT_K2_SEARCH_MIN=257",))),
 }
 
 
-def trials(dev):
-    """``--trials``: every variant of ``TRIALS`` against the default build
-    of its source, K5 at config 5 and K6 at config 8's fut block and config
-    9b's two calls: outputs bitwise equal to the default's, CUDA-event
-    times in turns (default, each variant, default again) and each launch's
-    shape."""
+def trials(dev, sources):
+    """``--trials [source ...]``: every variant of ``TRIALS`` (of the named
+    sources, or all) against the default build of its source, K5 at config
+    5, K6 at config 8's fut block and config 9b's two calls, K1 and K2 at
+    config 2's and config 5's K2 shape, K2 at config 9a's rows and at
+    20-year daily rows (the block route): outputs
+    bitwise equal to the default's, CUDA-event times in turns (default,
+    each variant, default again) and each launch's shape."""
     import concurrent.futures
 
     import torch
 
     from skdownscale_tpu_torch.kernels import build
     from skdownscale_tpu_torch.kernels import interp as I
+    from skdownscale_tpu_torch.kernels import rank_map as K
     from skdownscale_tpu_torch.kernels import slide_sort as S
     from skdownscale_tpu_torch.models.batched import GROUP_CHUNK
     from skdownscale_tpu_torch.models.slide import build_slide_plan
     from skdownscale_tpu_torch.utils.timeindex import TimeIndex, padded_doy_groups
 
-    jobs = [(src, label, defines) for src, variants in TRIALS.items()
-            for label, defines in (("default", ()), *variants)]
+    unknown = set(sources) - set(TRIALS)
+    _check(not unknown, f"--trials: no trials for {sorted(unknown)}; sources {sorted(TRIALS)}")
+    sources = sources or list(TRIALS)
+    jobs = [(src, label, defines) for src in sources
+            for label, defines in (("default", ()), *TRIALS[src])]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {(src, label): pool.submit(build.build, src, defines) for src, label, defines in jobs}
         builds = {key: f.result() for key, f in futures.items()}
     libs = {key: ctypes.CDLL(res.path) for key, res in builds.items()}
     print(f"trials: {len(jobs)} builds in {time.perf_counter() - t0:.2f} s")
+    modules = {"slide_sort": S, "interp": I, "rank_map": K}
+    for src, label, _ in jobs:
+        modules[src].declare(libs[(src, label)])
 
     def turns(src, run, check, describe, kernel):
+        """``kernel``: the ptxas fragment, or a function of the build's
+        label giving it."""
         names = ["default"] + [label for label, _ in TRIALS[src]] + ["default"]
         want = run(libs[(src, "default")])
         torch.cuda.synchronize()
@@ -960,38 +1051,65 @@ def trials(dev):
         for i, label in enumerate(names):
             ms = cuda_ms(lambda: run(libs[(src, label)]), iters=10, warmup=2)
             again = " (again)" if i == len(names) - 1 else ""
+            frag = kernel(label) if callable(kernel) else kernel
             print(f"trial {src} {label}{again}: {ms:.4f} ms; {describe(libs[(src, label)])}; "
-                  f"{ptxas_of(builds[(src, label)].log, kernel)}")
+                  f"{ptxas_of(builds[(src, label)].log, frag)}")
 
     rng = np.random.default_rng(SEED)
-    for src in TRIALS:
-        for label, _ in (("default", ()), *TRIALS[src]):
-            (S if src == "slide_sort" else I).declare(libs[(src, label)])
+    if "slide_sort" in sources:
+        ti = TimeIndex.from_pandas(daily_index())
+        plan = build_slide_plan(padded_doy_groups(ti), np.arange(31))
+        y = adversarial(rng, D_CELLS, len(ti))
+        y[rng.random(D_CELLS) < 0.01] = np.nan
+        yd = torch.from_numpy(y).to(dev)
+        del y
+        n_rows = -(-len(plan.consulted) // GROUP_CHUNK["daily"]) * GROUP_CHUNK["daily"]
+        print(f"trials K5 config 5 ({D_CELLS} cells x {len(ti)} days, Wp={len(plan.w0_idx)}, "
+              f"BW={plan.add_idx.shape[1]})")
+        items = S.launch_geometry(plan)["items"]
+        turns("slide_sort", lambda lib: S.launch(lib, yd, plan, n_rows),
+              lambda got, want, label: bitwise_err(got, want, f"K5 trial {label}"),
+              lambda lib: str(S.launch_geometry(plan, lib)),
+              f"slide_sorted_windows_kernelILi{items}ELb0E")
+        del yd
 
-    ti = TimeIndex.from_pandas(daily_index())
-    plan = build_slide_plan(padded_doy_groups(ti), np.arange(31))
-    y = adversarial(rng, D_CELLS, len(ti))
-    y[rng.random(D_CELLS) < 0.01] = np.nan
-    yd = torch.from_numpy(y).to(dev)
-    del y
-    n_rows = -(-len(plan.consulted) // GROUP_CHUNK["daily"]) * GROUP_CHUNK["daily"]
-    print(f"trials K5 config 5 ({D_CELLS} cells x {len(ti)} days, Wp={len(plan.w0_idx)}, "
-          f"BW={plan.add_idx.shape[1]})")
-    items = S.launch_geometry(plan)["items"]
-    turns("slide_sort", lambda lib: S.launch(lib, yd, plan, n_rows),
-          lambda got, want, label: bitwise_err(got, want, f"K5 trial {label}"),
-          lambda lib: str(S.launch_geometry(plan, lib)), f"slide_sorted_windows_kernelILi{items}ELb0E")
-    del yd
+    if "interp" in sources:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        cases = [("config 8 fut block", mbcn_interp_inputs(dev)),
+                 ("config 9b call 1", interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 1)),
+                 ("config 9b call 2", interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 2))]
+        for name, (xp, fp, q) in cases:
+            print(f"trials K6 {name} ({q.shape[0]} rows, L={xp.shape[1]}, Q={q.shape[1]})")
+            turns("interp", lambda lib: I.launch(lib, xp, fp, q),
+                  lambda got, want, label: bitwise_err(got, want, f"K6 {name} trial {label}"),
+                  lambda lib: str(I.launch_geometry(xp, fp, q, lib)), "batched_interp_staged_kernel")
+        del cases
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [("config 8 fut block", mbcn_interp_inputs(dev)),
-             ("config 9b call 1", interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 1)),
-             ("config 9b call 2", interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 2))]
-    for name, (xp, fp, q) in cases:
-        print(f"trials K6 {name} ({q.shape[0]} rows, L={xp.shape[1]}, Q={q.shape[1]})")
-        turns("interp", lambda lib: I.launch(lib, xp, fp, q),
-              lambda got, want, label: bitwise_err(got, want, f"K6 {name} trial {label}"),
-              lambda lib: str(I.launch_geometry(xp, fp, q, lib)), "batched_interp_staged_kernel")
+    if "rank_map" in sources:
+        c5_rows, c5_g, c5_l = config5_k2_shape()
+        cases = [("count_sort_segments", "config 2", N_CELLS, 12, 40),
+                 ("rank_map_segments", "config 2", N_CELLS, 12, 40),
+                 ("count_sort_segments", "config 5", c5_rows, c5_g, c5_l),
+                 ("rank_map_segments", "config 5", c5_rows, c5_g, c5_l),
+                 ("rank_map_segments", "config 9a rows", 62_245, 1, Q_PRED),
+                 ("rank_map_segments", "20-year daily rows", 8_192, 1, D_TIME)]
+        for kernel, name, B, G, L in cases:
+            x = torch.from_numpy(adversarial(rng, B * G, L).reshape(B, G * L)).to(dev)
+            res = torch.from_numpy(rng.normal(0.0, 1.0, (B * G, L)).astype(np.float32)).to(dev)
+            res = torch.sort(res, dim=1).values.reshape(B, G * L)
+            if kernel == "count_sort_segments":
+                def run(lib):
+                    return K.launch_count_sort(lib, x, L)
+            else:
+                def run(lib):
+                    return K.launch_rank_map(lib, x, res, L)
+            print(f"trials {kernel} {name} (B={B}, G={G}, L={L})")
+            turns("rank_map", run,
+                  lambda got, want, label: bitwise_err(got, want, f"{kernel} {name} trial {label}"),
+                  lambda lib: str(K.launch_geometry(kernel, L, lib)),
+                  lambda label: rank_map_ptxas(kernel, K.launch_geometry(
+                      kernel, L, libs[("rank_map", label)])))
+            del x, res
 
 
 def quantile_grid(rng, n_cells, side, n_fit, n_pred, y_too=True):
@@ -1154,8 +1272,51 @@ def k2_rows_time(X, nan_cells, dev):
     err = bitwise_err(got, K.rank_map_segments_plain(q, res, L), f"K2 rows L={L}")
     ms = cuda_ms(lambda: K.rank_map_segments(q, res, L), iters=10, warmup=2)
     plain_ms = cuda_ms(lambda: K.rank_map_segments_plain(q, res, L), iters=10, warmup=2)
+    sort_ms = cuda_ms(lambda: torch.sort(q, dim=-1), iters=10, warmup=2)
     b_ms, b_by = bound(12 * q.numel(), q.numel() * np.log2(L))
-    return q.shape[0], L, err, ms, plain_ms, b_ms, b_by
+    return q.shape[0], L, err, ms, plain_ms, b_ms, b_by, sort_ms
+
+
+def long_rows_phase(rng, card, dev):
+    """The daily series of 1950-2100 (L = 55,152, K2's search route):
+    ``PointWiseDownscaler(QuantileMapper(detrend=True))`` fit + transform on
+    a small grid of that length on the card, K2 launched, NaN cells NaN and
+    every cell against the CPU float64 path.  (K2 itself is held bitwise at
+    LONG_SHAPE in the kernel phase.)"""
+    import pandas as pd
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.xlite import DataArray
+
+    label = "long rows"
+    index = pd.date_range("1950-01-01", "2100-12-31", freq="D")
+    T = len(index)
+    _check(T == LONG_SHAPE[2], f"{label}: {T} days, not {LONG_SHAPE[2]}")
+    nan_cells = np.zeros(LONG_CELLS, bool)
+    nan_cells[rng.choice(LONG_CELLS, 3, replace=False)] = True
+    seas = (10.0 * np.sin(2 * np.pi * (index.dayofyear.to_numpy() - 1) / 365.25)).astype(np.float32)
+    trend = np.linspace(0.0, 3.0, T, dtype=np.float32)
+    a = (283.0 + seas + trend)[:, None] + 2.0 * rng.standard_normal((T, LONG_CELLS), dtype=np.float32)
+    a[:, nan_cells] = np.nan
+    coords = {"time": index, "lat": np.arange(LONG_SIDE), "lon": np.arange(LONG_SIDE)}
+    X = DataArray(a.reshape(T, LONG_SIDE, LONG_SIDE), ("time", "lat", "lon"), coords)
+
+    def make_model():
+        return sdt.QuantileMapper(detrend=True)
+
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    got = np.asarray(sdt.PointWiseDownscaler(make_model(), device=dev).fit(X).transform(X).values)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check(launches.get("rank_map_segments", 0) >= 1, f"{label}: K2 was not launched: {launches}")
+    check_against_cpu(label, got, X, None, X, nan_cells, make_model, "transform", rng, LONG_CELLS)
+    print(f"{label}: PointWiseDownscaler(QuantileMapper(detrend=True)) fit + transform of "
+          f"{LONG_CELLS} cells x {T} days (1950-01-01 to 2100-12-31): wall {wall:.4f} s (the first "
+          f"run: no warm-up); launches {launches}; card {card}")
 
 
 def config3_phase(rng, card, dev):
@@ -1866,8 +2027,8 @@ def main() -> int:
     try:
         card = card_line()
         print(card)  # nvidia-smi's own line: name, power limit
-        if sys.argv[1:] == ["--trials"]:
-            trials(torch.device("cuda", 0))
+        if sys.argv[1:2] == ["--trials"]:
+            trials(torch.device("cuda", 0), sys.argv[2:])
             print(card)
             return 0
         t0 = time.perf_counter()
@@ -1879,8 +2040,16 @@ def main() -> int:
         print(f"build: every source in {time.perf_counter() - t0:.2f} s")
         dev = torch.device("cuda", 0)
         rng = np.random.default_rng(SEED)
+        t_mark = [time.perf_counter()]
+
+        def mark(what):  # the seconds since the last mark, on a line of its own
+            now = time.perf_counter()
+            print(f"phase: {what} done in {now - t_mark[0]:.1f} s")
+            t_mark[0] = now
         kernels = kernel_phase(rng, dev)
+        mark("K1 / K2 kernels")
         kernels.update(slide_kernel_phase(rng, dev))
+        mark("K5 kernel")
 
         import skdownscale_tpu_torch as sdt
 
@@ -1891,6 +2060,7 @@ def main() -> int:
                             X, Y, nan_cells, N_REF_CELLS, 12, card, dev, rng,
                             ("count_sort_segments", "rank_map_segments"))
         streaming_phase(X, Y, nan_cells, card, dev)
+        mark("config 2 and monthly streaming")
         del X, Y
 
         X, Y, nan_cells = daily_grid(rng)
@@ -1904,9 +2074,11 @@ def main() -> int:
         )
         launches["slide_sorted_windows"] = daily["slide_sorted_windows"]
         config5_detrend_phase(X, Y, nan_cells, card, dev)
+        mark("config 5 and config 5 detrend")
         del X, Y
 
         kernels.update(interp_kernel_phase(dev))
+        mark("K6 kernel")
         X, Y, Xq, nan_cells = quantile_grid(rng, Q_CELLS, Q_SIDE, Q_FIT, Q_PRED)
         print(f"config 9b: fit {Q_FIT} days, predict {Q_PRED} days, {Q_CELLS} cells float32, "
               f"{int(nan_cells.sum())} NaN cells")
@@ -1922,24 +2094,32 @@ def main() -> int:
         q9a = run_registry_grid("config 9a", lambda: sdt.QuantileMapper(detrend=True),
                                 X, None, Xq, nan_cells, "transform", card, dev, rng, D_REF_CELLS)
         _check(q9a.get("rank_map_segments", 0) >= 1, f"config 9a: K2 was not launched: {q9a}")
-        rows, L, err, ms, plain_ms, b_ms, b_by = k2_rows_time(Xq, nan_cells, dev)
+        rows, L, err, ms, plain_ms, b_ms, b_by, sort_ms = k2_rows_time(Xq, nan_cells, dev)
         print(f"kernel rank_map_segments config 9a rows ({rows} x {L}, one segment a row): bitwise "
               f"equal to plain, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}); card {card}")
+              f"({b_by}), torch.sort of the same rows {sort_ms:.4f} ms (sorts only, not the same "
+              f"function); {describe_rank_map('rank_map_segments', L, build.build('rank_map').log)}; "
+              f"card {card}")
         del X, Y, Xq
+        long_rows_phase(rng, card, dev)
+        mark("configs 9b, 9a and the 1950-2100 grid")
         config3_phase(rng, card, dev)
+        mark("config 3")
 
         kernels.update(gard_kernel_phase(rng, dev))
+        mark("K7 / K8 kernels")
         l4a, l4b = gard_phases(rng, card, dev)
         launches["pure_analog_stats"] = l4a["pure_analog_stats"]
         launches["analog_regression_stats"] = l4b["analog_regression_stats"]
 
         kernels.update(sort_kernel_phase(rng, dev))
+        mark("configs 4a, 4b, PureRegression and the K9 kernel")
         l8 = mbcn_phase("config 8", rng, card, dev, None)
         for form in K9_FORMS:
             launches[form] = l8[form]
         mbcn_phase("config 8 monthly", rng, card, dev, "month")
         config8b_phase(rng, card, dev)
+        mark("configs 8, 8 monthly and 8b")
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

@@ -69,6 +69,60 @@ def test_kernels_bitwise_vs_plain(cuda_device, rng, B, G, L):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,G,L",
+    [(700, 1, 1), (300, 4, 64), (300, 4, 65), (300, 2, 256), (300, 2, 257), (64, 1, 1024),
+     (64, 1, 1025), (16, 1, 16384), (16, 1, 16385), (300, 1, 55_152)],
+)
+def test_kernels_bitwise_vs_plain_at_every_route_and_any_length(cuda_device, rng, B, G, L):
+    """K1 and K2 on each side of every route edge of csrc/rank_map.cu, and
+    K2 with one daily series of 1950-01-01 to 2100-12-31 a row (L = 55,152,
+    the search route; the kernel raised there before it had one): bitwise
+    equal to the plain versions, one launch a call, the build's route the
+    one kernels/rank_map.route names."""
+    x = torch.from_numpy(_adversarial(rng, B * G, L).reshape(B, G * L)).to(cuda_device)
+    res = torch.from_numpy(
+        np.sort(rng.normal(0, 1, (B * G, L)).astype(np.float32), axis=1).reshape(B, G * L)
+    ).to(cuda_device)
+    kernels = ["rank_map_segments"] + (["count_sort_segments"] if L <= K.COUNT_SORT_MAX_LEN else [])
+    for name in kernels:
+        assert K.launch_geometry(name, L)["route"] == K.route(name, L)
+        n0 = K.LAUNCHES[name]
+        if name == "count_sort_segments":
+            got, want = K.count_sort_segments(x, L), K.count_sort_segments_plain(x, L)
+        else:
+            got, want = K.rank_map_segments(x, res, L), K.rank_map_segments_plain(x, res, L)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == n0 + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+@pytest.mark.cuda
+def test_quantile_mapper_on_a_1950_2100_daily_grid_on_the_card(cuda_device, rng):
+    """QuantileMapper(detrend=True) fit + transform of 16 cells of daily
+    data from 1950-01-01 to 2100-12-31 (K2 at L = 55,152) on the card
+    against the CPU float64 path, within the quantile family's limits."""
+    index = pd.date_range("1950-01-01", "2100-12-31", freq="D")
+    T, C = len(index), 16
+    seas = 10 * np.sin(2 * np.pi * (index.dayofyear.values - 1) / 365.25)
+    x = (283 + seas[:, None] + np.linspace(0, 3, T)[:, None] + rng.normal(0, 2, (T, C))).astype(np.float32)
+    x[:, 5] = np.nan
+    coords = {"time": index, "cell": np.arange(C)}
+    dims = ("time", "cell")
+    n0 = K.LAUNCHES["rank_map_segments"]
+    got = P.PointWiseDownscaler(P.QuantileMapper(detrend=True), device=cuda_device).fit(
+        DataArray(x, dims, coords)).transform(DataArray(x, dims, coords)).values
+    assert K.LAUNCHES["rank_map_segments"] > n0
+    x64 = DataArray(x.astype(np.float64), dims, coords)
+    want = P.PointWiseDownscaler(P.QuantileMapper(detrend=True), device="cpu").fit(x64).transform(x64).values
+    assert got.dtype == np.float32 and got.shape == want.shape and got.size == T * C
+    npt.assert_array_equal(np.isnan(got), np.isnan(want))
+    d = np.abs(got.astype(np.float64) - want)[~np.isnan(want)]
+    assert np.quantile(d, 0.999) <= 2e-3
+    assert np.mean(d > 1e-3) <= 5e-3 and d.max() <= 5.0
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     x64 = torch.zeros((2, 40), dtype=torch.float64, device=cuda_device)
     with pytest.raises(TypeError):

@@ -112,7 +112,30 @@ with a non-zero exit at the first failure, it:
 17. config 8 monthly (``group="month"``) on the same grid: K9 at
     month-length rows;
 18. config 8b: 16,384 valid cells (128 x 136, 1,024 NaN cells) in
-    2,048-cell chunks, one timed run of the grid runner.
+    2,048-cell chunks, one timed run of the grid runner;
+19. config 7 (BASELINE config 7): ``PointWiseDownscaler(ZScoreRegressor(
+    window_width=31))`` fit and predict on 65,536 cells (256 x 256, about
+    5% NaN cells) x 7,305 days from 1990-01-01 (data as bench.py:452-471;
+    the banded rolling form on the card): valid cells NaN exactly on the
+    window's edges, 512 cells against the CPU float64 path, wall, cells/s,
+    device time, peak memory;
+20. config 6 (BASELINE config 6): ``PiecewiseLinearRegression(n_segments=6)``
+    with ``fit_option="arrm"`` and ``"auto"`` on 16,384 cells (128 x 128) x
+    1,000 steps (data as bench.py:346-351), 256 cells of each against the
+    CPU float64 path ('auto' by its per-cell SSR and prediction spread);
+21. the per-cell object fallback of ``PointWiseDownscaler``: 256 cells of
+    config 7's data cut to 1,825 days through a least-squares regression
+    with scikit-learn's API (the card's machine has no scikit-learn), then
+    64 of them through a ``TrendAwareQuantileMappingRegressor`` whose trend
+    transformer is a subclass (each cell fit on the card by the single-cell
+    API): host loops, cells/s, every cell against the CPU float64 path;
+22. config G: ``GlobalDownscaler(GlobalQuantileMapper())`` (Q = 2,048) and
+    ``GlobalLinearRegressor`` in both intercept modes on 65,536 cells (256 x
+    256, about 5% NaN cells) x 3,650 days: K6 launched twice by the ladder
+    fit and once by ``transform``, the ladders and coefficients against the
+    CPU float64 path on the whole grid and the outputs on 512 cells, and K6
+    at its two new shapes (one row of 2.4e8 knots; 65,536 rows on one
+    shared 2,048-knot table) bitwise against its plain version and timed.
 
 The line before the last is a JSON object with each kernel's launches by
 its path, error, times, bound and the one PyTorch call that computes the
@@ -234,6 +257,49 @@ TOL_MBCN_FULL = {None: (0.99967, 0.005), "month": (0.994, 0.009)}
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # bound of a kernel is the larger of its compulsory bytes over the memory
 # rate and its operations over the float32 (non-tensor-core) rate
+# config 7 (BASELINE config 7, bench.py:452-471): ZScoreRegressor(31) on
+# 65,536 cells (256 x 256) x 7,305 days from 1990-01-01, 512 cells checked.
+# Float32 rounding at ~283 K is ~3e-5 K; the fit's pooled sums and the
+# rolling sums run on centred values, which adds ~1e-5 K.  The bulk must
+# stay within 5e-4 K at the 99.9th percentile, none above 5e-3 K.
+Z_CELLS, Z_SIDE, Z_WINDOW, Z_REF_CELLS = 65_536, 256, 31, 512
+TOL_Z = (5e-4, 5e-3)  # p99.9, max |diff| in K
+# config 6 (BASELINE config 6, bench.py:346-351): ARRM, n_segments = 6, on
+# 16,384 cells (128 x 128) x 1,000 steps, 256 cells checked.  The ARRM fits
+# run in float64 on the card as on the CPU (models/arrm.py), from the same
+# float32 inputs, so 'arrm' differs only by summation order and the float32
+# rounding of the output (~1e-6 at |y| <= 17): p99.9 <= 1e-5, at most 0.1%
+# of values above 1e-5, none above 1.0 (a window whose r² ties another's
+# to rounding may move a break by a few samples).  'auto' refines
+# redundant breaks by Adam on a flat, non-convex SSR, where runs that
+# differ by rounding end at other local minima (PERF.md section 2): the
+# median over cells of |SSR_card / SSR_cpu - 1| <= 1%, the median per-cell
+# RMS of the prediction difference <= 0.05 (a sixth of the noise's 0.3), and
+# every card fit's residual RMS <= 2.0 (better than a straight line).
+A_SIDE, A_TIME, A_REF_CELLS = 128, 1_000, 256
+TOL_ARRM = (1e-5, 1e-3, 1.0)  # p99.9, share above the p99.9 limit, max
+TOL_AUTO = (0.01, 0.05, 2.0)  # median |ratio - 1|, median RMS, worst residual RMS
+# the per-cell object fallback: 256 cells of config 7's data cut to 1,825
+# days (a least-squares regression with scikit-learn's API), the first 64
+# through a refused TrendAware model,
+# each cell on the card (float32) against the CPU float64 path: the
+# quantile family's bulk and maximum (TOL_Q)
+F_CELLS, F_TA_CELLS, F_TIME = 256, 64, 1_825
+TOL_FALLBACK = (2e-3, 5.0)  # p99.9, max |diff| in K
+# config G: the pooled models on config 9b's 65,536 cells (256 x 256) x
+# 3,650 days, Q = 2,048.  The float32 ladder takes its plotting positions
+# from float64 ranks rounded to float32 (a relative 6e-8, about 14 of
+# 2.4e8 ranks), which moves a quantile by 14 sample gaps: ~1e-6 K in the
+# bulk, up to ~1e-3 K at the sparse tails; with float32 rounding the
+# ladders must agree within 1e-2 K everywhere, the mapped outputs within
+# 2e-3 K at the 99.9th percentile and 1e-2 K at most.  The pooled linear
+# sums run per cell and then as a tree over cells in float32: relative
+# error ~1e-6, so coefficients within 1e-4 relative, intercepts and
+# outputs within 1e-2 K.
+G_TIME, G_Q, G_REF_CELLS_OUT = 3_650, 2_048, 512
+TOL_G_LADDER = 1e-2
+TOL_G = (2e-3, 1e-2)
+TOL_G_LINEAR = (1e-4, 1e-2, 1e-2)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -1113,14 +1179,14 @@ def trials(dev, sources):
 
 
 def quantile_grid(rng, n_cells, side, n_fit, n_pred, y_too=True):
-    """x (fit), y (fit) and x (predict) daily float32 grids as
-    bench.py:619-626, (time, lat, lon) with about 5% NaN cells."""
+    """x (fit), y (fit) and x (predict; None for ``n_pred=None``) daily
+    float32 grids as bench.py:619-626, (time, lat, lon) with about 5% NaN
+    cells."""
     import pandas as pd
 
     from skdownscale_tpu_torch.xlite import DataArray
 
     idx = pd.date_range("1990-01-01", periods=n_fit, freq="D")
-    idx_p = pd.date_range("2050-01-01", periods=n_pred, freq="D")
     nan_cells = rng.random(n_cells) < NAN_CELL_SHARE
     dims = ("time", "lat", "lon")
 
@@ -1135,7 +1201,7 @@ def quantile_grid(rng, n_cells, side, n_fit, n_pred, y_too=True):
 
     X = grid(idx, 283.0 + 1.5, 2.0)
     Y = grid(idx, 282.0, 1.8) if y_too else None
-    Xq = grid(idx_p, 283.6, 2.0)
+    Xq = grid(pd.date_range("2050-01-01", periods=n_pred, freq="D"), 283.6, 2.0) if n_pred else None
     return X, Y, Xq, nan_cells
 
 
@@ -2011,6 +2077,417 @@ def config8b_phase(rng, card, dev):
           f"memory {peak / 2**30:.3f} GiB; launches {launches}; card {card}")
 
 
+# ----------------------------------------------------------------------
+# configs 7, 6, the per-cell fallback and config G
+# ----------------------------------------------------------------------
+
+
+class LstsqRegression:
+    """Least-squares linear regression with scikit-learn's fit / predict
+    API and no batched implementation: the card's machine has no
+    scikit-learn, so it stands in for ``sklearn.linear_model.
+    LinearRegression`` (the CPU tests run the real one)."""
+
+    def fit(self, X, y):
+        A = np.column_stack([np.asarray(X, np.float64), np.ones(len(X))])
+        self.coef_ = np.linalg.lstsq(A, np.asarray(y, np.float64).reshape(-1), rcond=None)[0]
+        return self
+
+    def predict(self, X):
+        return np.column_stack([np.asarray(X, np.float64), np.ones(len(X))]) @ self.coef_
+
+
+def diff_stats(got, want):
+    """(p99.9, max, values) of |got - want| over entries finite in both;
+    fails unless both have NaN in the same places."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    _check(np.array_equal(np.isnan(got), np.isnan(want)), "NaN in other places than the CPU path's")
+    d = np.abs(got - want)[np.isfinite(want)]
+    return float(np.quantile(d, 0.999)), float(d.max()), d
+
+
+def cpu_subset(A, ids):
+    """Cells ``ids`` of a (time, *spatial) DataArray as a float64 (time,
+    cell) DataArray."""
+    from skdownscale_tpu_torch.xlite import DataArray
+
+    v = A.values.reshape(A.values.shape[0], -1)[:, ids].astype(np.float64)
+    return DataArray(v, ("time", "cell"), {"time": A.coords["time"], "cell": np.arange(len(ids))})
+
+
+def timed_grid_run(label, make_model, X, Y, Xq, apply, card, dev, cells_note=""):
+    """Warm-up and one timed ``PointWiseDownscaler`` fit + ``apply`` on the
+    card (launch counts set to 0 just before, read just after), the device
+    time of the registry's fit and apply cores by CUDA events (one call
+    each, on the compacted cells), peak device memory; returns (output,
+    launches, wall)."""
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.models import batched
+    from skdownscale_tpu_torch.utils import native
+
+    C = int(np.prod(X.values.shape[1:]))
+
+    def run():
+        m = sdt.PointWiseDownscaler(make_model(), device=dev)
+        m.fit(X, Y)
+        return getattr(m, apply)(Xq)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = np.asarray(run().values)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the registry's cores alone, on the compacted cells, by CUDA events
+    m = sdt.PointWiseDownscaler(make_model(), device=dev)
+    est = m._model
+    packs = [m._pack(m._to_feature_x(A)) for A in (X, Y, Xq)]
+    ids = np.nonzero(native.valid_mask(packs[0]["flat"][0, 0]))[0].astype(np.int32)
+    xd, yd, xqd = (m._to_device(p["flat"], ids) for p in packs)
+    idx, idx_p = packs[0]["index"], packs[2]["index"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    state = batched.batched_fit(est, idx, xd, yd[:, :, 0])
+    ev[1].record()
+    batched.batched_predict(est, state, idx, xqd, idx_p)
+    ev[2].record()
+    torch.cuda.synchronize()
+    fit_ms, apply_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    del xd, yd, xqd, state
+    print(f"{label}: PointWiseDownscaler fit ({X.values.shape[0]} steps) + {apply} "
+          f"({Xq.values.shape[0]} steps) on {C} cells{cells_note}: wall {wall:.4f} s, "
+          f"{C / wall:.1f} cells/s (host pack, copies and unpack included); device time of the "
+          f"registry's fit {fit_ms:.3f} ms and {apply} {apply_ms:.3f} ms (CUDA events, one call "
+          f"each); peak device memory {peak / 2**30:.3f} GiB ({peak / (C * X.values.shape[0]):.1f} "
+          f"B a (cell, step)); launches {launches}; card {card}")
+    return out, launches, wall
+
+
+def config7_phase(rng, card, dev):
+    """Config 7 (BASELINE config 7): ``ZScoreRegressor(window_width=31)`` on
+    65,536 cells x 7,305 days, fit and predict on the same record; 512 cells
+    against the CPU float64 path within TOL_Z."""
+    import skdownscale_tpu_torch as sdt
+
+    X, Y, _, nan_cells = quantile_grid(rng, Z_CELLS, Z_SIDE, D_TIME, None)
+    print(f"config 7: grid {D_TIME} days x {Z_CELLS} cells float32, {int(nan_cells.sum())} NaN cells")
+
+    def make():
+        return sdt.ZScoreRegressor(window_width=Z_WINDOW)
+
+    got, _, _ = timed_grid_run("config 7", make, X, Y, X, "predict", card, dev)
+    got = got.reshape(D_TIME, -1)
+    edge = np.zeros(D_TIME, dtype=bool)
+    edge[: Z_WINDOW // 2] = edge[D_TIME - Z_WINDOW // 2:] = True  # min_periods = window
+    _check(np.isnan(got[:, nan_cells]).all(), "config 7: a NaN cell came out with values")
+    _check(np.isnan(got[edge][:, ~nan_cells]).all() and np.isfinite(got[~edge][:, ~nan_cells]).all(),
+           "config 7: valid cells are not NaN exactly on the window's edges")
+    ids = np.sort(rng.choice(np.nonzero(~nan_cells)[0], Z_REF_CELLS, replace=False))
+    ref = sdt.PointWiseDownscaler(make(), device="cpu").fit(cpu_subset(X, ids), cpu_subset(Y, ids))
+    ref = ref.predict(cpu_subset(X, ids)).values
+    p999, dmax, d = diff_stats(got[:, ids], ref)
+    lim_p999, lim_max = TOL_Z
+    print(f"config 7: {Z_REF_CELLS} cells vs CPU float64: max |diff| {dmax:.6g} K, p99.9 {p999:.6g} K, "
+          f"median {float(np.median(d)):.6g} K (limits p99.9 <= {lim_p999:g}, max <= {lim_max:g})")
+    _check(p999 <= lim_p999 and dmax <= lim_max,
+           "config 7: the GPU output is outside the stated tolerance of the CPU float64 path")
+
+
+def arrm_grid(rng):
+    """Config 6's data (bench.py:346-351) on 128 x 128 cells x 1,000 days,
+    about 5% NaN cells."""
+    import pandas as pd
+
+    from skdownscale_tpu_torch.xlite import DataArray
+
+    C = A_SIDE * A_SIDE
+    nan_cells = rng.random(C) < NAN_CELL_SHARE
+    x = rng.uniform(-10, 15, (A_TIME, C)).astype(np.float32)
+    y = (np.where(x < 0, -1.0 * x, np.where(x < 5, 2.0 * x, 10 + 0.5 * (x - 5)))
+         + rng.normal(0, 0.3, (A_TIME, C))).astype(np.float32)
+    x[:, nan_cells] = y[:, nan_cells] = np.nan
+    dims = ("time", "lat", "lon")
+    coords = {"time": pd.date_range("1990-01-01", periods=A_TIME, freq="D"),
+              "lat": np.arange(A_SIDE), "lon": np.arange(A_SIDE)}
+    shape = (A_TIME, A_SIDE, A_SIDE)
+    return DataArray(x.reshape(shape), dims, coords), DataArray(y.reshape(shape), dims, coords), nan_cells
+
+
+def config6_phase(rng, card, dev):
+    """Config 6 (BASELINE config 6): ``PiecewiseLinearRegression(
+    n_segments=6)`` with ``fit_option="arrm"`` and ``"auto"`` on 16,384
+    cells x 1,000 days; 256 cells of each against the CPU float64 path
+    (TOL_ARRM for 'arrm', TOL_AUTO for 'auto')."""
+    import skdownscale_tpu_torch as sdt
+
+    X, Y, nan_cells = arrm_grid(rng)
+    print(f"config 6: grid {A_TIME} days x {A_SIDE * A_SIDE} cells float32, "
+          f"{int(nan_cells.sum())} NaN cells")
+    ids = np.sort(rng.choice(np.nonzero(~nan_cells)[0], A_REF_CELLS, replace=False))
+    y_ref = Y.values.reshape(A_TIME, -1)[:, ids].astype(np.float64)
+    for option in ("arrm", "auto"):
+        label = f"config 6 {option}"
+
+        def make(option=option):
+            return sdt.PiecewiseLinearRegression(n_segments=6, fit_option=option)
+
+        got, _, _ = timed_grid_run(label, make, X, Y, X, "predict", card, dev)
+        got = got.reshape(A_TIME, -1)
+        _check(np.isnan(got[:, nan_cells]).all() and np.isfinite(got[:, ~nan_cells]).all(),
+               f"{label}: NaN cells or valid cells came out wrong")
+        ref = sdt.PointWiseDownscaler(make(), device="cpu").fit(cpu_subset(X, ids), cpu_subset(Y, ids))
+        ref = ref.predict(cpu_subset(X, ids)).values
+        p999, dmax, d = diff_stats(got[:, ids], ref)
+        if option == "arrm":
+            lim_p999, lim_share, lim_max = TOL_ARRM
+            share = float(np.mean(d > lim_p999))
+            print(f"{label}: {A_REF_CELLS} cells vs CPU float64: max |diff| {dmax:.6g}, p99.9 "
+                  f"{p999:.6g}, share above {lim_p999:g} {share:.6g} (limits p99.9 <= {lim_p999:g}, "
+                  f"share <= {lim_share:g}, max <= {lim_max:g})")
+            _check(p999 <= lim_p999 and share <= lim_share and dmax <= lim_max,
+                   f"{label}: the GPU output is outside the stated tolerance of the CPU float64 path")
+            continue
+        ssr_card = ((got[:, ids] - y_ref) ** 2).sum(0)
+        ssr_cpu = ((ref - y_ref) ** 2).sum(0)
+        ratio = ssr_card / ssr_cpu
+        rms = np.sqrt(((got[:, ids] - ref) ** 2).mean(0))
+        worst = float(np.sqrt(ssr_card / A_TIME).max())
+        lim_ratio, lim_rms, lim_worst = TOL_AUTO
+        med = float(np.median(np.abs(ratio - 1)))
+        print(f"{label}: {A_REF_CELLS} cells vs CPU float64: per-cell SSR ratio quantiles "
+              f"(0, 5, 50, 95, 100%) {np.quantile(ratio, [0, 0.05, 0.5, 0.95, 1]).round(6).tolist()}, "
+              f"cells within 1% {float(np.mean(np.abs(ratio - 1) <= 0.01)):.4f}, median |ratio - 1| "
+              f"{med:.6g}, median per-cell RMS of the prediction difference {float(np.median(rms)):.6g}, "
+              f"largest residual RMS on the card {worst:.6g} (limits median |ratio - 1| <= "
+              f"{lim_ratio:g}, median RMS <= {lim_rms:g}, every residual RMS <= {lim_worst:g})")
+        _check(med <= lim_ratio and float(np.median(rms)) <= lim_rms and worst <= lim_worst,
+               f"{label}: the GPU fits are outside the stated tolerance of the CPU float64 path")
+
+
+def fallback_phase(rng, card, dev):
+    """The per-cell object fallback: 256 cells of config 7's grid cut to
+    1,825 days through a least-squares regression with scikit-learn's API
+    (:class:`LstsqRegression`), then the first 64 of them
+    through a TrendAware model whose trend transformer the batched rule
+    refuses (each cell's fit on the card by the single-cell API); every
+    cell against the CPU float64 path."""
+    import pandas as pd
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.models.base import SingleCellEstimator
+    from skdownscale_tpu_torch.xlite import DataArray
+
+    class SubclassedTrend(sdt.LinearTrendTransformer):
+        """A trend transformer of another class: the batched rule refuses it."""
+
+    idx = pd.date_range("1990-01-01", periods=F_TIME, freq="D")
+    seas = (10.0 * np.sin(2 * np.pi * (idx.dayofyear.to_numpy() - 1) / 365.25)).astype(np.float32)
+    x = (283.0 + 1.5 + seas[:, None] + rng.normal(0, 2, (F_TIME, F_CELLS))).astype(np.float32)
+    y = (282.0 + seas[:, None] + rng.normal(0, 1.8, (F_TIME, F_CELLS))).astype(np.float32)
+    nan_cells = rng.random(F_CELLS) < NAN_CELL_SHARE
+    x[:, nan_cells] = y[:, nan_cells] = np.nan
+    c = {"time": idx, "cell": np.arange(F_CELLS)}
+    ta = [("least-squares regression", LstsqRegression, F_CELLS),
+          ("TrendAware with a subclassed trend transformer",
+           lambda: sdt.TrendAwareQuantileMappingRegressor(
+               sdt.QuantileMappingReressor(extrapolate="both"), SubclassedTrend()), F_TA_CELLS)]
+    for name, make, n in ta:
+        X = DataArray(x[:, :n], ("time", "cell"), {**c, "cell": np.arange(n)})
+        Y = DataArray(y[:, :n], ("time", "cell"), {**c, "cell": np.arange(n)})
+        _check(not sdt.models.batched.supports_batched(make()), f"fallback: {name} is batchable")
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        got = sdt.PointWiseDownscaler(make(), device=dev).fit(X, Y).predict(X).values
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        card_device = SingleCellEstimator.single_cell_device
+        SingleCellEstimator.single_cell_device = torch.device("cpu")
+        try:
+            X64, Y64 = (DataArray(a.values.astype(np.float64), a.dims, dict(a.coords)) for a in (X, Y))
+            ref = sdt.PointWiseDownscaler(make(), device="cpu").fit(X64, Y64).predict(X64).values
+        finally:
+            SingleCellEstimator.single_cell_device = card_device
+        p999, dmax, d = diff_stats(got, ref)
+        valid = int((~nan_cells[:n]).sum())
+        lim_p999, lim_max = TOL_FALLBACK
+        print(f"fallback {name}: {n} cells ({valid} valid) x {F_TIME} days, host loop: wall {wall:.4f} s, "
+              f"{n / wall:.1f} cells/s; every cell vs CPU float64: max |diff| {dmax:.6g} K, p99.9 "
+              f"{p999:.6g} K (limits p99.9 <= {lim_p999:g}, max <= {lim_max:g}); launches {launches}; "
+              f"card {card}")
+        _check(p999 <= lim_p999 and dmax <= lim_max,
+               f"fallback {name}: the GPU output is outside the stated tolerance of the CPU float64 path")
+        _check(np.isnan(got[:, nan_cells[:n]]).all(), f"fallback {name}: a NaN cell came out with values")
+
+
+def k6_global_shapes(dev, ladder_args, map_args, card):
+    """K6 at config G's two shapes (the ladder: one row of C x T knots and
+    the Q plotting positions as queries; the map: every cell row against the
+    shared Q-knot ladder) bitwise against its plain version, and timed."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import interp as I
+
+    rows = []
+    for name, (xp, fp, q) in (("ladder", ladder_args), ("map", map_args)):
+        got = I.batched_interp(xp, fp, q)
+        torch.cuda.synchronize()
+        err = bitwise_err(got, I.batched_interp_plain(xp, fp, q), f"K6 config G {name}")
+        ms = cuda_ms(lambda: I.batched_interp(xp, fp, q), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: I.batched_interp_plain(xp, fp, q), iters=3, warmup=1)
+        B, L, Q = q.shape[0], xp.shape[1], q.shape[1]
+        # every knot is read (a NaN knot anywhere in a row turns its results
+        # NaN), each query once, each output written once
+        n_bytes = 4 * (xp.numel() + fp.numel() + q.numel() + got.numel())
+        b_ms, b_by = bound(n_bytes, B * Q * (np.ceil(np.log2(L)) + 15))
+        geo = I.launch_geometry(xp, fp, q)
+        print(f"kernel batched_interp config G {name} ({B} rows, L={L}, Q={Q}): bitwise equal to "
+              f"plain (max |diff| {err}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB), one PyTorch call: none; "
+              f"{'staged' if geo['staged'] else 'device memory'}, {geo['threads']} threads a block, "
+              f"{geo['blocks_per_sm']} resident blocks an SM, grid {geo['grid']}; card {card}")
+        rows.append((name, ms, plain_ms, b_ms))
+    return rows
+
+
+def configG_phase(rng, card, dev):
+    """Config G: ``GlobalDownscaler(GlobalQuantileMapper())`` (Q = 2,048) and
+    ``GlobalLinearRegressor`` in both intercept modes on 65,536 cells x
+    3,650 days; K6 launched by the ladder fit and by ``transform``; the
+    ladders and coefficients against the CPU float64 path on the whole
+    grid, the outputs on 512 cells; K6 at the two new shapes.  Returns K6's
+    launches in the mapper's fit and transform."""
+    from unittest import mock
+
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.ops import interp as OI
+
+    X, Y, _, nan_cells = quantile_grid(rng, Q_CELLS, Q_SIDE, G_TIME, None)
+    C = Q_CELLS
+    print(f"config G: grid {G_TIME} days x {C} cells float32, {int(nan_cells.sum())} NaN cells")
+    ids = np.sort(rng.choice(np.nonzero(~nan_cells)[0], G_REF_CELLS_OUT, replace=False))
+    x64 = np.ascontiguousarray(X.values.reshape(G_TIME, C).T, dtype=np.float64)  # (C, T)
+    y64 = np.ascontiguousarray(Y.values.reshape(G_TIME, C).T, dtype=np.float64)
+
+    # the mapper: launches of the fit and of transform, walls, device times
+    def fit():
+        return sdt.GlobalDownscaler(sdt.GlobalQuantileMapper(), device=dev).fit(X, Y)
+
+    fit().transform(X)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    gd = fit()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fit_k6 = LAUNCHES["batched_interp"]
+    LAUNCHES.clear()
+    out = gd.transform(X)
+    wall = time.perf_counter() - t0
+    tr_k6 = LAUNCHES["batched_interp"]
+    peak = torch.cuda.max_memory_allocated()
+    _check(fit_k6 == 2 and tr_k6 == 1,
+           f"config G: K6 launched {fit_k6} times by the fit (2 ladders) and {tr_k6} by transform (1)")
+    got = np.moveaxis(np.asarray(out.values), -1, 0).reshape(G_TIME, C)
+    _check(np.isnan(got[:, nan_cells]).all() and np.isfinite(got[:, ~nan_cells]).all(),
+           "config G: NaN cells or valid cells came out wrong")
+    model = gd._model
+    xt = torch.from_numpy(x64.astype(np.float32)).to(dev)
+    yt = torch.from_numpy(y64.astype(np.float32)).to(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    model.fit(xt, yt)
+    ev[1].record()
+    model.transform(xt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    print(f"config G: GlobalDownscaler(GlobalQuantileMapper()) Q={G_Q} fit + transform on {C} cells "
+          f"x {G_TIME} days: wall {wall:.4f} s (fit {t1 - t0:.4f} s), {C / wall:.1f} cells/s (host "
+          f"pack, copies and unpack included); device time of the fit "
+          f"{ev[0].elapsed_time(ev[1]):.3f} ms and transform {ev[1].elapsed_time(ev[2]):.3f} ms "
+          f"(CUDA events); peak device memory {peak / 2**30:.3f} GiB; K6 launches: fit {fit_k6}, "
+          f"transform {tr_k6}; card {card}")
+
+    # the CPU float64 path on the whole grid (ladders), outputs on 512 cells
+    ref = sdt.GlobalQuantileMapper(device="cpu").fit(x64, y64)
+    st, rst = model.state_, ref.state_
+    _check(int(st.n_x) == int(rst.n_x) and int(st.n_y) == int(rst.n_y), "config G: sample counts differ")
+    for name in ("x_ladder", "y_ladder"):
+        a, b = getattr(st, name).double().cpu().numpy(), getattr(rst, name).numpy()
+        p999, dmax, _ = diff_stats(a, b)
+        print(f"config G: {name} ({G_Q} quantiles) vs CPU float64 on the whole grid: max |diff| "
+              f"{dmax:.6g} K, p99.9 {p999:.6g} K (limit max <= {TOL_G_LADDER:g})")
+        _check(dmax <= TOL_G_LADDER, f"config G: {name} outside the stated tolerance")
+    want = ref.transform(x64[ids]).numpy().T
+    p999, dmax, _ = diff_stats(got[:, ids], want)
+    lim_p999, lim_max = TOL_G
+    print(f"config G transform: {len(ids)} cells vs CPU float64: max |diff| {dmax:.6g} K, p99.9 "
+          f"{p999:.6g} K (limits p99.9 <= {lim_p999:g}, max <= {lim_max:g})")
+    _check(p999 <= lim_p999 and dmax <= lim_max, "config G transform: outside the stated tolerance")
+
+    # K6 at its two new shapes, with the arguments the fit's x ladder and
+    # transform give it
+    real, seen = OI.batched_interp, []
+
+    def record(xp, fp, q):
+        seen.append((xp, fp, q))
+        return real(xp, fp, q)
+
+    with mock.patch.object(OI, "batched_interp", record):
+        model.fit(xt, yt)
+        model.transform(xt)
+    _check(len(seen) == 3, f"config G: {len(seen)} K6 calls in fit + transform, not 3")
+    rows = k6_global_shapes(dev, seen[0], seen[2], card)
+    del seen
+
+    # the pooled linear models, both intercept modes
+    for cell_intercepts in (False, True):
+        label = f"config G linear (cell_intercepts={cell_intercepts})"
+
+        def lin():
+            return sdt.GlobalDownscaler(sdt.GlobalLinearRegressor(cell_intercepts=cell_intercepts), device=dev)
+
+        lin().fit(X, Y).predict(X)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = lin().fit(X, Y)
+        out = g.predict(X)
+        wall = time.perf_counter() - t0
+        pred = np.moveaxis(np.asarray(out.values), -1, 0).reshape(G_TIME, C)
+        ref = sdt.GlobalLinearRegressor(cell_intercepts=cell_intercepts, device="cpu")
+        ref.fit(x64[..., None], y64)
+        st, rst = g._model.state_, ref.state_
+        coef_rel = float((st.coef.double().cpu() - rst.coef).abs().max() / rst.coef.abs().max())
+        icpt = (st.cell_intercept if cell_intercepts else st.intercept[None]).double().cpu().numpy()
+        ricpt = (rst.cell_intercept if cell_intercepts else rst.intercept[None]).numpy()
+        _, icpt_max, _ = diff_stats(icpt, ricpt)
+        want = ref.predict(x64[..., None])[ids].numpy().T
+        p999, dmax, _ = diff_stats(pred[:, ids], want)
+        lim_coef, lim_icpt, lim_out = TOL_G_LINEAR
+        print(f"{label}: fit + predict on {C} cells x {G_TIME} days: wall {wall:.4f} s, {C / wall:.1f} "
+              f"cells/s; vs CPU float64 on the whole grid: coef {st.coef.cpu().numpy().tolist()} "
+              f"(relative diff {coef_rel:.3g}), intercepts max |diff| {icpt_max:.6g} K; outputs on "
+              f"{len(ids)} cells max |diff| {dmax:.6g} K (limits coef <= {lim_coef:g} relative, "
+              f"intercepts <= {lim_icpt:g} K, outputs <= {lim_out:g} K); card {card}")
+        _check(coef_rel <= lim_coef and icpt_max <= lim_icpt and dmax <= lim_out,
+               f"{label}: outside the stated tolerance of the CPU float64 path")
+    return fit_k6 + tr_k6, rows
+
+
 def main() -> int:
     import torch
 
@@ -2120,6 +2597,15 @@ def main() -> int:
         mbcn_phase("config 8 monthly", rng, card, dev, "month")
         config8b_phase(rng, card, dev)
         mark("configs 8, 8 monthly and 8b")
+        config7_phase(rng, card, dev)
+        mark("config 7")
+        config6_phase(rng, card, dev)
+        mark("config 6 arrm and auto")
+        fallback_phase(rng, card, dev)
+        mark("the per-cell fallback")
+        g_k6, _ = configG_phase(rng, card, dev)
+        launches["batched_interp"] += g_k6
+        mark("config G")
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

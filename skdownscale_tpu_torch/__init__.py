@@ -6,10 +6,15 @@ API.  This package imports torch and never jax.  Ported so far: BCSD
 (``time_grouper="daily_nasa-nex"``), dense and streaming, and the
 quantile-mapping family (``CunnaneTransformer``, ``QuantileMapper``,
 ``QuantileMappingReressor``, ``EquidistantCdfMatcher``,
-``TrendAwareQuantileMappingRegressor``, ``LinearTrendTransformer``) and
-the GARD analog family (``PureAnalog``, ``AnalogRegression``,
-``PureRegression``), through ``PointWiseDownscaler`` and the single-cell
-API, and multivariate MBCn (``MBCn``, ``models.mbc.mbcn_grid``), with
+``TrendAwareQuantileMappingRegressor``, ``LinearTrendTransformer``), the
+GARD analog family (``PureAnalog``, ``AnalogRegression``,
+``PureRegression``), day-of-year z-scores (``ZScoreRegressor``) and ARRM
+(``PiecewiseLinearRegression``), through ``PointWiseDownscaler`` (any other
+sklearn-style estimator takes its per-cell loop) and the single-cell API,
+``GroupedRegressor``, multivariate MBCn (``MBCn``,
+``models.mbc.mbcn_grid``) and the pooled models of ``global_models``
+(``GlobalLinearRegressor``, ``GlobalQuantileMapper``,
+``GlobalDownscaler``) on one device, with
 hand-written CUDA kernels for the segment count-sort, rank-map, sliding
 sorted window, batched table interpolation, the fused analog selection and
 statistics, and the row sort with positions and unsort (K9) (``kernels/``,
@@ -29,10 +34,17 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from . import xlite  # noqa: E402
+from . import global_models, xlite  # noqa: E402
+from .global_models import (  # noqa: E402
+    GlobalDownscaler,
+    GlobalLinearRegressor,
+    GlobalQuantileMapper,
+)
+from .models.arrm import PiecewiseLinearRegression  # noqa: E402
 from .models.bcsd import BcsdPrecipitation, BcsdTemperature  # noqa: E402
 from .models.gard import AnalogRegression, PureAnalog, PureRegression  # noqa: E402
 from .models.groupers import DAY_GROUPER, MONTH_GROUPER, PaddedDOYGrouper  # noqa: E402
+from .models.grouping import GroupedRegressor  # noqa: E402
 from .models.mbc import MBCn  # noqa: E402
 from .models.quantile import (  # noqa: E402
     CunnaneTransformer,
@@ -42,6 +54,7 @@ from .models.quantile import (  # noqa: E402
     TrendAwareQuantileMappingRegressor,
 )
 from .models.trend import LinearTrendTransformer  # noqa: E402
+from .models.zscore import ZScoreRegressor  # noqa: E402
 from .pointwise import PointWiseDownscaler  # noqa: E402
 
 __all__ = [
@@ -61,5 +74,12 @@ __all__ = [
     "AnalogRegression",
     "PureRegression",
     "MBCn",
+    "ZScoreRegressor",
+    "PiecewiseLinearRegression",
+    "GroupedRegressor",
+    "global_models",
+    "GlobalDownscaler",
+    "GlobalLinearRegressor",
+    "GlobalQuantileMapper",
     "xlite",
 ]

@@ -11,7 +11,9 @@ package can be used by the other's predict.  The quantile family's states
 (``QmState``, ``QmrState``, ``TrendState``) are named tuples of arrays with
 the same fields in both packages and move the same way, as do the GARD
 family's ``GardState`` (the grid's training set) and
-``PureRegressionState``.  A fitted JAX ``MBCn`` wrapper (whose state is
+``PureRegressionState``, the z-score and ARRM states (``ZScoreState``,
+``ArrmState``) and the global models' (``GlobalLinearState``,
+``GlobalQuantileState``).  A fitted JAX ``MBCn`` wrapper (whose state is
 numpy arrays) becomes the port's ``MBCn`` with :func:`mbcn_state_from_jax`.
 """
 
@@ -20,12 +22,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .global_models.linear import GlobalLinearState
+from .global_models.quantile import GlobalQuantileState
+from .models.arrm import ArrmState
 from .models.batched import GardState
 from .models.bcsd import BcsdLazyState, BcsdState
 from .models.gard import PureRegressionState
 from .models.mbc import MBCn
 from .models.quantile import QmrState, QmState
 from .models.trend import TrendState
+from .models.zscore import ZScoreState
 
 __all__ = [
     "bcsd_state_from_jax",
@@ -40,6 +46,10 @@ __all__ = [
     "gard_state_from_jax",
     "pure_regression_state_from_jax",
     "mbcn_state_from_jax",
+    "zscore_state_from_jax",
+    "arrm_state_from_jax",
+    "global_linear_state_from_jax",
+    "global_quantile_state_from_jax",
     "state_to_numpy",
 ]
 
@@ -118,3 +128,33 @@ def mbcn_state_from_jax(model) -> MBCn:
         out._months_hist = np.asarray(model._months_hist)
         out._months_obs = np.asarray(model._months_obs)
     return out
+
+
+def zscore_state_from_jax(shift, scale, x_mean, x_std, y_mean, y_std, device="cpu", dtype=None) -> ZScoreState:
+    """Numpy fields of a JAX ``ZScoreState`` (a grid's (C, D-1) or a
+    wrapper's ``_state``) -> the port's ``ZScoreState`` on ``device``."""
+    return ZScoreState(*_tensors((shift, scale, x_mean, x_std, y_mean, y_std), device, dtype))
+
+
+def arrm_state_from_jax(breaks, beta, x_min, x_max, device="cpu") -> ArrmState:
+    """Numpy fields of a JAX ``ArrmState`` -> the port's ``ArrmState`` on
+    ``device``, in float64 (the port's ARRM state is float64 on every
+    device)."""
+    return ArrmState(*_tensors((breaks, beta, x_min, x_max), device, torch.float64))
+
+
+def global_linear_state_from_jax(coef, intercept, cell_intercept, n_samples, device="cpu",
+                                 dtype=None) -> GlobalLinearState:
+    """Numpy fields of a JAX ``GlobalLinearState`` -> the port's
+    ``GlobalLinearState`` on ``device``."""
+    return GlobalLinearState(*_tensors((coef, intercept, cell_intercept, n_samples), device, dtype))
+
+
+def global_quantile_state_from_jax(pp, x_ladder, y_ladder, n_x, n_y, device="cpu",
+                                   dtype=None) -> GlobalQuantileState:
+    """Numpy fields of a JAX ``GlobalQuantileState`` -> the port's
+    ``GlobalQuantileState`` on ``device`` (the sample counts stay integers)."""
+    dev = torch.device(device)
+    pp, xl, yl = _tensors((pp, x_ladder, y_ladder), dev, dtype)
+    counts = (torch.tensor(np.asarray(n), dtype=torch.int64, device=dev) for n in (n_x, n_y))
+    return GlobalQuantileState(pp, xl, yl, *counts)

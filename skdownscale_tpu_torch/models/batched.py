@@ -1,8 +1,8 @@
 """Batched execution registry: ``(cells, time)`` implementations by
 estimator type.
 
-Port of ``skdownscale_tpu/models/batched.py`` with its BCSD, trend,
-quantile-family and GARD entries.  Where the reference runs one Python estimator
+Port of ``skdownscale_tpu/models/batched.py`` with all its entries: BCSD,
+trend, the quantile family, z-score, ARRM and GARD.  Where the reference runs one Python estimator
 object per grid cell (``pointwise_models/core.py:86-96``), an estimator
 registered here fits, predicts and transforms every cell of a
 ``(cells, time)`` tensor at once; its fitted state is a tuple (or dict) of
@@ -11,7 +11,9 @@ registered here fits, predicts and transforms every cell of a
 The BCSD entry takes the streaming formulation (lazy fit, group-chunked
 predict) for the daily flavor at every cell count and for the monthly
 flavor from :data:`STREAMING_CELL_THRESHOLD` cells up; below it the monthly
-flavor takes the dense path.
+flavor takes the dense path.  An estimator that is not registered here (or
+whose ``accepts`` refuses it) takes ``PointWiseDownscaler``'s per-cell
+object loop.
 """
 
 from __future__ import annotations
@@ -21,14 +23,17 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from . import arrm as _arrm
 from . import bcsd as _bcsd
 from . import gard as _gard
 from . import quantile as _q
 from . import trend as _t
+from . import zscore as _z
 
 __all__ = [
     "STREAMING_CELL_THRESHOLD",
     "GROUP_CHUNK",
+    "ZSCORE_PASS_ELEMENTS",
     "register",
     "supports_batched",
     "batched_fit",
@@ -204,10 +209,9 @@ def _ta_trend_opts(model):
 
 def _ta_accepts(model):
     """The batched path requires a plain ``LinearTrendTransformer`` (with
-    supported ``lr_kwargs``) and a batchable inner qm_estimator.  The JAX
-    package runs anything else through its per-cell loop, which the port
-    does not have yet: such a model raises on a grid (its single-cell API
-    takes it)."""
+    supported ``lr_kwargs``) and a batchable inner qm_estimator; anything
+    else (a trend transformer of another class, say) takes the runner's
+    exact per-cell object loop, as in the JAX package."""
     tt = model.trend_transformer
     if type(tt) is not _t.LinearTrendTransformer:
         return False
@@ -304,6 +308,81 @@ def _bcsd_attrs(model, state):
 
 
 register(_bcsd.BcsdBase, _Impl(_bcsd_fit, _bcsd_predict, None, _bcsd_attrs))
+
+
+# ----------------------------------------------------------------------
+# ZScore
+# ----------------------------------------------------------------------
+
+
+# (cell, day) elements of one z-score pass.  A grid runner's fit + predict
+# peaks at 39.5 device bytes an element (17.604 GiB at 65,536 cells x
+# 7,305 days on an H100, PERF.md section 5); 80 GB less a fifth of headroom
+# (the allocator's slack, the prefetched next chunk) holds about 1.6e9,
+# some 219,000 cells of 20 daily years.  The JAX package's single pass of
+# 65,536 such cells (bench.py:434-440) was set for a 16 GB chip.  A larger
+# grid runs in passes of ZSCORE_PASS_ELEMENTS // T cells (its inputs and
+# output stay whole: bound them with the runner's cell_chunk_size).
+ZSCORE_PASS_ELEMENTS = 1_600_000_000
+
+
+def _cell_passes(C: int, T: int):
+    step = max(1, ZSCORE_PASS_ELEMENTS // max(T, 1))
+    return [slice(i, i + step) for i in range(0, max(C, 1), step)]
+
+
+def _zscore_fit(model, index_fit, X, y):
+    idx, mask = _z.build_year_doy_table(index_fit)
+    x = _single(X)
+    parts = [_z.zscore_fit(x[s], y[s], idx, mask, window=model.window_width)
+             for s in _cell_passes(*x.shape)]
+    return _z.ZScoreState(*(torch.cat(f) for f in zip(*parts)))
+
+
+def _zscore_predict(model, state, index_fit, X, index):
+    x = _single(X)
+    inds = _z.expand_indices(x.shape[1])
+    return torch.cat([
+        _z.zscore_predict(_z.ZScoreState(*(f[s] for f in state)), x[s], inds,
+                          window=model.window_width)[0]
+        for s in _cell_passes(*x.shape)
+    ])
+
+
+register(
+    _z.ZScoreRegressor,
+    _Impl(
+        _zscore_fit,
+        _zscore_predict,
+        None,
+        lambda model, state: {"shift_": state.shift.cpu().numpy(), "scale_": state.scale.cpu().numpy()},
+    ),
+)
+
+
+# ----------------------------------------------------------------------
+# ARRM / PiecewiseLinearRegression
+# ----------------------------------------------------------------------
+
+
+def _arrm_fit(model, index_fit, X, y):
+    return _arrm.arrm_fit_batched(
+        _single(X), y, fit_option=model.fit_option, n_segments=int(model.n_segments)
+    )
+
+
+def _arrm_predict(model, state, index_fit, X, index):
+    return _arrm.arrm_predict_batched(state, _single(X))
+
+
+def _arrm_attrs(model, state):
+    # pwlf-style break vector [x_min, interior..., x_max] per cell (ref
+    # arrm.py:154, the single-cell wrapper's fit_breaks_)
+    fb = torch.cat([state.x_min[:, None], state.breaks, state.x_max[:, None]], dim=1)
+    return {"fit_breaks_": fb.cpu().numpy()}
+
+
+register(_arrm.PiecewiseLinearRegression, _Impl(_arrm_fit, _arrm_predict, None, _arrm_attrs))
 
 
 # ----------------------------------------------------------------------

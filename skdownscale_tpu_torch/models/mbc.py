@@ -377,7 +377,7 @@ def mbcn_grid(
     if sharding is not None:
         raise NotImplementedError(
             "mbcn_grid(sharding=...) waits for the port of the multi-device layer "
-            "(ROADMAP Queue 1 item 13); pass device= to run on one device"
+            "(ROADMAP Queue 1 A item 5); pass device= to run on one device"
         )
     if group not in (None, "month"):
         raise ValueError(f"group must be None or 'month', got {group!r}")

@@ -10,12 +10,18 @@ chunk at once on the runner's device.
 
 Inputs duck-type xarray: real ``xarray.DataArray``/``Dataset`` objects, or
 :mod:`skdownscale_tpu_torch.xlite` containers; outputs are built with the
-input's own type.  Estimators without a batched implementation raise
-``NotImplementedError`` (the per-cell object fallback is ROADMAP.md work).
+input's own type.  Estimators without a batched implementation (sklearn
+estimators and Pipelines, or a registered model whose ``accepts`` refuses
+the instance, such as a ``TrendAwareQuantileMappingRegressor`` with a
+custom trend transformer) fall back to the reference-style per-cell object
+loop, host-driven as in the JAX package: a deep copy of the model is fit to
+each valid cell's pandas frame, and an estimator of this package inside it
+runs on its own ``single_cell_device``.
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
 
 import numpy as np
@@ -65,11 +71,14 @@ class PointWiseDownscaler:
     Parameters
     ----------
     model : estimator
-        An estimator of this package with a batched implementation
-        (``BcsdTemperature``, ``BcsdPrecipitation``, ``LinearTrendTransformer``,
+        Any object with the scikit-learn fit/predict API.  An estimator of
+        this package with a batched implementation (``BcsdTemperature``,
+        ``BcsdPrecipitation``, ``LinearTrendTransformer``,
         ``CunnaneTransformer``, ``QuantileMapper``, ``QuantileMappingReressor``,
         ``EquidistantCdfMatcher``, ``TrendAwareQuantileMappingRegressor``,
-        ``PureAnalog``, ``AnalogRegression``, ``PureRegression``).
+        ``ZScoreRegressor``, ``PiecewiseLinearRegression``, ``PureAnalog``,
+        ``AnalogRegression``, ``PureRegression``) runs every cell of a chunk
+        at once on ``device``; any other model takes the per-cell loop.
         ``predict`` and ``transform`` may take a time axis of another length
         than ``fit`` where the model allows it (the quantile regressors and
         the GARD family).  A model with several outputs (the GARD family's
@@ -79,9 +88,10 @@ class PointWiseDownscaler:
     dim : str
         Time dimension name (default ``'time'``).
     device : str or torch.device
-        Where the grid is fitted and predicted.  On a CUDA device the grid
-        is moved in float32 and the hand-written kernels run; on the CPU the
-        input dtype is kept (float64 stays float64).  Never chosen by probing.
+        Where a batched model fits and predicts the grid.  On a CUDA device
+        the grid is moved in float32 and the hand-written kernels run; on
+        the CPU the input dtype is kept (float64 stays float64).  Never
+        chosen by probing.
     cell_chunk_size : int, optional
         Process (and hold state for) at most this many valid cells per
         device pass, bounding device memory.
@@ -96,6 +106,7 @@ class PointWiseDownscaler:
         self._model = model
         self._state = None  # list of per-chunk batched states
         self._state_plan = None  # list of valid-cell id chunks
+        self._models = None  # per-cell object array (fallback path)
         self.device = torch.device(device)
         self.cell_chunk_size = cell_chunk_size
 
@@ -164,12 +175,6 @@ class PointWiseDownscaler:
             raise ValueError(f"Expected at most 1 positional argument, got {len(args)}")
         y = args[0] if args else None
         feature_dim = kwargs.pop("feature_dim", DEFAULT_FEATURE_DIM)
-        if not _b.supports_batched(self._model):
-            raise NotImplementedError(
-                f"{type(self._model).__name__} has no batched implementation in "
-                "skdownscale_tpu_torch yet (ROADMAP.md Queue 1); the per-cell "
-                "object fallback is not ported"
-            )
 
         Xf = self._to_feature_x(X, feature_dim)
         px = self._pack(Xf)
@@ -200,6 +205,10 @@ class PointWiseDownscaler:
                 # reference estimators assert X/y index equality (base.py:17)
                 raise ValueError("X and y must share an identical time index")
 
+        if not _b.supports_batched(self._model):
+            self._fit_fallback(px, py)
+            return self
+        self._models = None
         self._state_plan = self._plan_chunks()
 
         def _prep(ids):
@@ -216,6 +225,51 @@ class PointWiseDownscaler:
         return self
 
     # ------------------------------------------------------------------
+    # per-cell object fallback
+    # ------------------------------------------------------------------
+    def _feature_names(self):
+        names = self._px_meta["coords"].get(DEFAULT_FEATURE_DIM)
+        if names is None:
+            return [f"{DEFAULT_FEATURE_DIM}_0"]
+        return list(np.asarray(names))
+
+    def _cell_df(self, flat, c, index):
+        """One cell of a (T, F, C) host grid as a (T, F) pandas frame."""
+        import pandas as pd
+
+        return pd.DataFrame(flat[:, :, c], index=index, columns=self._feature_names())
+
+    def _fit_fallback(self, px, py):
+        """A deep copy of the model fit to each valid cell, in a host loop
+        (``pointwise.py:354-375`` of the JAX package)."""
+        import pandas as pd
+
+        models = np.full(px["n_cells"], None, dtype=object)
+        for c in self._cell_ids:
+            mod = copy.deepcopy(self._model)
+            xdf = self._cell_df(px["flat"], c, self._fit_index)
+            if py is not None:
+                models[c] = mod.fit(xdf, pd.DataFrame(py["flat"][:, 0, c], index=self._fit_index))
+            else:
+                models[c] = mod.fit(xdf)
+        self._models = models
+        self._state = self._state_plan = None
+
+    def _per_cell(self, px, method, n_outputs=1):
+        """``method`` of each fitted cell's model on its frame of ``px``:
+        (valid cells, T, n_outputs) on the host."""
+        T = px["T"]
+        rows = [
+            np.asarray(getattr(self._models[c], method)(self._cell_df(px["flat"], c, px["index"])))
+            for c in self._cell_ids
+        ]
+        return np.stack([r.reshape(T, n_outputs) for r in rows]) if rows else np.zeros((0, T, n_outputs))
+
+    def _check_fitted(self):
+        if self._state is None and self._models is None:
+            raise ValueError("PointWiseDownscaler is not fitted; call fit first")
+
+    # ------------------------------------------------------------------
     # predict
     # ------------------------------------------------------------------
     def _n_outputs(self):
@@ -227,8 +281,7 @@ class PointWiseDownscaler:
             return 1, None
 
     def predict(self, X, **kwargs):
-        if self._state is None:
-            raise ValueError("PointWiseDownscaler is not fitted; call fit first")
+        self._check_fitted()
         feature_dim = kwargs.pop("feature_dim", DEFAULT_FEATURE_DIM)
         Xf = self._to_feature_x(X, feature_dim)
         px = self._pack(Xf)
@@ -237,6 +290,7 @@ class PointWiseDownscaler:
         unpacked = self._run_chunks(
             px,
             lambda st, xd: _b.batched_predict(self._model, st, self._fit_index, xd, px["index"]),
+            "predict",
             n_outputs,
         )  # (T, n_outputs, C)
         coords = dict(px["coords"])
@@ -250,19 +304,23 @@ class PointWiseDownscaler:
             coords[feature_dim] = output_names
         return _dataarray_type(X if is_dataarray(X) else Xf)(data, dims, coords)
 
-    def _run_chunks(self, px, run, n_outputs=1):
+    def _run_chunks(self, px, run, method, n_outputs=1):
         """``run(state, x)`` on every chunk of ``px``'s fitted cells
         (double-buffered host feed), each giving (cells, T) or (cells, T,
-        n_outputs), unpacked to a (T, n_outputs, C) host grid with NaN in the
-        cells the fit dropped."""
+        n_outputs), or the fitted models' ``method`` cell by cell on the
+        fallback path, unpacked to a (T, n_outputs, C) host grid with NaN in
+        the cells the fit dropped."""
         T, C = px["T"], px["n_cells"]
-        outs = [
-            run(st, xd).cpu().numpy()
-            for st, xd in zip(
-                self._state,
-                prefetched(self._state_plan, lambda ids: self._to_device(px["flat"], ids)),
-            )
-        ]
+        if self._state is None:
+            outs = [self._per_cell(px, method, n_outputs)]
+        else:
+            outs = [
+                run(st, xd).cpu().numpy()
+                for st, xd in zip(
+                    self._state,
+                    prefetched(self._state_plan, lambda ids: self._to_device(px["flat"], ids)),
+                )
+            ]
         if len(outs) == 1:
             out_v = outs[0]  # one chunk: no full-size host copy
         else:
@@ -282,8 +340,7 @@ class PointWiseDownscaler:
         return self._transform(X, "inverse_transform", **kwargs)
 
     def _transform(self, X, direction, **kwargs):
-        if self._state is None:
-            raise ValueError("PointWiseDownscaler is not fitted; call fit first")
+        self._check_fitted()
         feature_dim = kwargs.pop("feature_dim", DEFAULT_FEATURE_DIM)
         Xf = self._to_feature_x(X, feature_dim)
         px = self._pack(Xf)
@@ -292,6 +349,7 @@ class PointWiseDownscaler:
             lambda st, xd: _b.batched_transform(
                 self._model, st, self._fit_index, xd, px["index"], direction
             ),
+            direction,
         )  # (T, 1, C)
         dims = Xf.dims
         return _dataarray_type(X if is_dataarray(X) else Xf)(
@@ -303,20 +361,22 @@ class PointWiseDownscaler:
     # ------------------------------------------------------------------
     def get_attr(self, key: str, dtype=None, template_output=None):
         """Gather a fitted attribute from every cell (``core.py:405-425``)."""
-        if self._state is None:
-            raise ValueError("PointWiseDownscaler is not fitted; call fit first")
+        self._check_fitted()
         meta = self._px_meta
         C = meta["n_cells"]
         mask = self._mask
 
-        chunks = [_b.batched_attrs(self._model, st) for st in self._state]
-        if key not in chunks[0]:
-            raise AttributeError(
-                f"attribute {key!r} is not exposed by the batched "
-                f"implementation of {type(self._model).__name__}; "
-                f"available: {sorted(chunks[0])}"
-            )
-        vals = np.concatenate([np.asarray(c[key]) for c in chunks], axis=0)  # (Cv, ...)
+        if self._state is None:
+            vals = np.asarray([getattr(self._models[c], key) for c in self._cell_ids])
+        else:
+            chunks = [_b.batched_attrs(self._model, st) for st in self._state]
+            if key not in chunks[0]:
+                raise AttributeError(
+                    f"attribute {key!r} is not exposed by the batched "
+                    f"implementation of {type(self._model).__name__}; "
+                    f"available: {sorted(chunks[0])}"
+                )
+            vals = np.concatenate([np.asarray(c[key]) for c in chunks], axis=0)  # (Cv, ...)
         extra_shape = vals.shape[1:]
 
         full = np.full((C, *extra_shape), np.nan, dtype=dtype or float)
@@ -342,7 +402,7 @@ class PointWiseDownscaler:
         return "\n".join(
             [
                 f"<skdownscale_tpu_torch.{type(self).__name__}>",
-                f"  Fit Status: {self._state is not None}",
+                f"  Fit Status: {self._state is not None or self._models is not None}",
                 f"  Device: {self.device}",
                 f"  Model:\n    {self._model}",
             ]

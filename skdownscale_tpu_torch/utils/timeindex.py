@@ -1,10 +1,10 @@
 """Host-side calendar features for a time axis.
 
 Host copy of ``skdownscale_tpu/utils/timeindex.py`` (``TimeIndex``,
-``PaddedGroups`` and the month, day-of-month and padded day-of-year group
-builders): group structure is built once on the host as plain numpy arrays
-and uploaded to the device as index tensors by the callers.  Nothing in
-this module touches torch.
+``PaddedGroups`` and the month, day-of-month, padded day-of-year and
+day-of-year band group builders): group structure is built once on the
+host as plain numpy arrays and uploaded to the device as index tensors by
+the callers.  Nothing in this module touches torch.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ __all__ = [
     "month_groups",
     "day_groups",
     "padded_doy_groups",
+    "doy_band_groups",
 ]
 
 
@@ -273,4 +274,18 @@ def padded_doy_groups(ti: TimeIndex, offset: int = 15) -> PaddedGroups:
         sel_leap = leap_rows[np.isin(doy[leap_rows], list(days_leap))]
         sel_noleap = noleap_rows[np.isin(doy[noleap_rows], list(days_noleap))]
         members.append(np.concatenate([sel_leap, sel_noleap]))
+    return PaddedGroups.from_member_lists(members, keys)
+
+
+def doy_band_groups(ti: TimeIndex, window: int) -> PaddedGroups:
+    """Index-flavoured ``PaddedDOYGrouper`` (``grouping.py:106-138``): one
+    group per observed day-of-year 1..max(doy), membership = rows whose doy is
+    within a +/- ``window`` circular band on a max(doy)-day calendar."""
+    doy = ti.dayofyear
+    n = int(doy.max())
+    members = []
+    keys = np.arange(1, n + 1, dtype=np.int32)
+    for d in keys:
+        band = (np.arange(d - 1 - window, d + window) % n) + 1
+        members.append(np.nonzero(np.isin(doy, band))[0])
     return PaddedGroups.from_member_lists(members, keys)

@@ -928,3 +928,118 @@ def test_mbcn_grid_and_single_cell_on_the_card(cuda_device, rng):
     m = P.MBCn(n_iterations=5).fit(xh, y)
     out = m.predict(xf)
     assert out.dtype == np.float32 and out.shape == xf.shape and np.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_k6_at_the_pooled_models_shapes_bitwise_vs_plain(cuda_device, rng):
+    """K6 at config G's two shapes at a tenth of their size: one row of
+    sorted knots with a +inf-padded tail and the 2,048 plotting positions
+    as queries (the ladder), and every cell row against one shared 2,048-knot
+    table (the map)."""
+    from skdownscale_tpu_torch.global_models.quantile import ladder_positions
+    from skdownscale_tpu_torch.kernels import interp as I
+
+    N = 24_000_000
+    vals = torch.sort(torch.randn(N, device=cuda_device) * 3 + 283).values
+    sp = ((torch.arange(N, dtype=torch.float64, device=cuda_device) + 0.6) / (N - 1000 + 0.2)).float()
+    sp[-1000:] = float("inf")
+    vals[-1000:] = vals[-1001]
+    pp = ladder_positions(2048, torch.float32, cuda_device)
+    table = torch.sort(torch.randn(2048, device=cuda_device) * 2 + 282).values
+    q = torch.from_numpy(rng.normal(284, 3, (6554, 3650)).astype(np.float32)).to(cuda_device)
+    q[:5] = float("nan")
+    q[7, :100] = table[:100]  # knot hits
+    for args in ((sp[None], vals[None], pp[None]), (table[None], table[None] * 0.9 + 25, q)):
+        n0 = I.LAUNCHES["batched_interp"]
+        got = I.batched_interp(*args)
+        torch.cuda.synchronize()
+        assert I.LAUNCHES["batched_interp"] == n0 + 1
+        assert torch.equal(got.view(torch.int32), I.batched_interp_plain(*args).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_pooled_models_on_the_card_match_the_cpu(cuda_device, rng):
+    """``GlobalDownscaler`` defaults to the card: the mapper's fit launches
+    K6 twice (two ladders) and its transform once; ladders, coefficients
+    and outputs agree with the CPU float64 path."""
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+
+    T, ny, nx = 900, 8, 10
+    data = rng.normal(283, 3, (T, ny, nx)).astype(np.float32)
+    data[:, 0, 0] = np.nan
+    obs = (data * 0.9 + 25 + rng.normal(0, 0.5, (T, ny, nx))).astype(np.float32)
+    dims, coords = ("time", "y", "x"), {"time": np.arange(T), "y": np.arange(ny), "x": np.arange(nx)}
+    X, Y = DataArray(data, dims, coords), DataArray(obs, dims, coords)
+    n0 = LAUNCHES["batched_interp"]
+    gd = P.GlobalDownscaler(P.GlobalQuantileMapper(n_quantiles=512)).fit(X, Y)
+    assert LAUNCHES["batched_interp"] == n0 + 2
+    out = gd.transform(X).values
+    assert LAUNCHES["batched_interp"] == n0 + 3 and out.dtype == np.float32
+    ref = P.GlobalDownscaler(P.GlobalQuantileMapper(n_quantiles=512), device="cpu")
+    X64, Y64 = (DataArray(a.values.astype(np.float64), dims, coords) for a in (X, Y))
+    want = ref.fit(X64, Y64).transform(X64).values
+    npt.assert_array_equal(np.isnan(out), np.isnan(want))
+    npt.assert_allclose(out, want, atol=2e-3, equal_nan=True)
+    for cell_intercepts in (False, True):
+        pred = P.GlobalDownscaler(P.GlobalLinearRegressor(cell_intercepts=cell_intercepts)).fit(X, Y).predict(X)
+        want = P.GlobalDownscaler(P.GlobalLinearRegressor(cell_intercepts=cell_intercepts),
+                                  device="cpu").fit(X64, Y64).predict(X64)
+        npt.assert_allclose(pred.values, want.values, atol=2e-3, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_exact_ladder_raises_past_k6_and_past_free_memory(cuda_device, monkeypatch):
+    """A ladder row longer than K6 takes, or a sort that does not fit the
+    card, raises with its size; nothing falls back."""
+    from skdownscale_tpu_torch.global_models import quantile as GQ
+
+    x = torch.randn(40, 50, device=cuda_device)
+    monkeypatch.setattr(GQ, "_K6_MAX_KNOTS", 1000)
+    with pytest.raises(ValueError, match="2000 samples"):
+        P.GlobalQuantileMapper().fit(x, x)
+    monkeypatch.setattr(GQ, "_K6_MAX_KNOTS", 2**31 - 1)
+    monkeypatch.setattr(GQ, "_LADDER_BYTES_PER_SAMPLE", 2**40)
+    with pytest.raises(MemoryError, match="2000 samples"):
+        P.GlobalQuantileMapper().fit(x, x)
+
+
+@pytest.mark.cuda
+def test_zscore_and_arrm_grids_and_single_cells_on_the_card(cuda_device, rng, monkeypatch):
+    """``ZScoreRegressor`` takes the banded rolling form on the card and
+    matches the CPU float64 path, in one pass and in several; ARRM fits in
+    float64 on the card, so its 'arrm' breaks equal the CPU's; both
+    single-cell APIs run on the card."""
+    from skdownscale_tpu_torch.models import batched as PB
+    from skdownscale_tpu_torch.ops import rolling as R
+
+    T, C = 1500, 40
+    idx = pd.date_range("1990-01-01", periods=T, freq="D")
+    seas = 10 * np.sin(2 * np.pi * (idx.dayofyear.to_numpy() - 1) / 365.25)
+    x = (284.5 + seas[:, None] + rng.normal(0, 2, (T, C))).astype(np.float32)
+    y = (282 + seas[:, None] + rng.normal(0, 1.8, (T, C))).astype(np.float32)
+    x[:, 0] = y[:, 0] = np.nan
+    assert R.use_stats_matmul(torch.from_numpy(x.T.copy()).to(cuda_device), 31)
+    dims, c = ("time", "cell"), {"time": idx, "cell": np.arange(C)}
+    X, Y = DataArray(x, dims, c), DataArray(y, dims, c)
+    X64, Y64 = (DataArray(a.values.astype(np.float64), dims, c) for a in (X, Y))
+    got = P.PointWiseDownscaler(P.ZScoreRegressor()).fit(X, Y).predict(X).values
+    want = P.PointWiseDownscaler(P.ZScoreRegressor(), device="cpu").fit(X64, Y64).predict(X64).values
+    npt.assert_array_equal(np.isnan(got), np.isnan(want))
+    npt.assert_allclose(got, want, atol=5e-3, equal_nan=True)
+    monkeypatch.setattr(PB, "ZSCORE_PASS_ELEMENTS", 15 * T)  # passes of 15 cells
+    passes = P.PointWiseDownscaler(P.ZScoreRegressor()).fit(X, Y).predict(X).values
+    npt.assert_allclose(passes, got, atol=1e-4, equal_nan=True)
+    xa = rng.uniform(-10, 15, (T, C)).astype(np.float32)
+    ya = (np.abs(xa) + rng.normal(0, 0.3, (T, C))).astype(np.float32)
+    A, B = DataArray(xa, dims, c), DataArray(ya, dims, c)
+    A64, B64 = (DataArray(a.values.astype(np.float64), dims, c) for a in (A, B))
+    card = P.PointWiseDownscaler(P.PiecewiseLinearRegression(n_segments=6, fit_option="arrm")).fit(A, B)
+    cpu = P.PointWiseDownscaler(P.PiecewiseLinearRegression(n_segments=6, fit_option="arrm"),
+                                device="cpu").fit(A64, B64)
+    npt.assert_array_equal(card.get_attr("fit_breaks_").values, cpu.get_attr("fit_breaks_").values)
+    npt.assert_allclose(card.predict(A).values, cpu.predict(A64).values, atol=1e-4)
+    frame = pd.DataFrame({"t": x[:, 1]}, index=idx)
+    z = P.ZScoreRegressor().fit(frame, pd.DataFrame({"t": y[:, 1]}, index=idx))
+    assert np.isfinite(z.shift_).all() and z.predict(frame).shape == (T, 1)
+    pw = P.PiecewiseLinearRegression(fit_option="fast").fit(xa[:, :1], ya[:, 0])
+    assert np.isfinite(pw.predict(xa[:, :1])).all()

@@ -388,13 +388,19 @@ def test_pointwise_transform_matches_jax(rng, name):
 
 
 def test_pointwise_refuses_a_trend_aware_model_the_jax_rule_refuses(rng):
-    """The JAX package runs such a model per cell; the port has no per-cell
-    fallback yet, so the grid raises (the single-cell API takes it)."""
+    """The batched registry refuses such a model, as the JAX rule does, and
+    the grid runs it per cell, as the JAX package does; its single-cell fit
+    then raises on the unsupported ``lr_kwargs`` in the first cell, as the
+    JAX package's does."""
     dims, c_fit, _, x, y, _ = _grids(rng, C=40)
-    model = P.TrendAwareQuantileMappingRegressor(
-        P.QuantileMappingReressor(), P.LinearTrendTransformer({"tol": 1e-3})
+    make = lambda pkg: pkg.TrendAwareQuantileMappingRegressor(  # noqa: E731
+        pkg.QuantileMappingReressor(), pkg.LinearTrendTransformer({"tol": 1e-3})
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.PointWiseDownscaler(model, device="cpu").fit(PDA(x, dims, c_fit), PDA(y, dims, c_fit))
+    assert not P.models.batched.supports_batched(make(P))
+    assert not J.models.batched.supports_batched(make(J))
+    with pytest.raises(ValueError, match="unsupported lr_kwargs"):
+        J.PointWiseDownscaler(make(J)).fit(JDA(x, dims, c_fit), JDA(y, dims, c_fit))
+    with pytest.raises(ValueError, match="unsupported lr_kwargs"):
+        P.PointWiseDownscaler(make(P), device="cpu").fit(PDA(x, dims, c_fit), PDA(y, dims, c_fit))
     ok = P.TrendAwareQuantileMappingRegressor(P.QuantileMappingReressor())
     assert P.models.batched.supports_batched(ok)

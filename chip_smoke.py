@@ -135,7 +135,25 @@ with a non-zero exit at the first failure, it:
     fit and once by ``transform``, the ladders and coefficients against the
     CPU float64 path on the whole grid and the outputs on 512 cells, and K6
     at its two new shapes (one row of 2.4e8 knots; 65,536 rows on one
-    shared 2,048-knot table) bitwise against its plain version and timed.
+    shared 2,048-knot table) bitwise against its plain version and timed;
+23. the pipeline: writes gcm and obs of 512 x 512 = 262,144 cells x 480
+    months (about 5% NaN cells) as a zarr v3 blosc store with the port's
+    zarrlite, then runs ``run_pointwise_pipeline(..., device="cuda")`` with
+    ``BcsdTemperature(return_anoms=False)`` in 2 bands of 131,072 cells
+    (pinned staging, copies on a side stream, the write of one band while
+    the next is read), once to warm up and once timed: K1 and K2 launched
+    once per band, the staging pinned, the output store read back through
+    ``ZarrGridSource`` with its DatetimeIndex, NaN cells NaN, every cell
+    against ``PointWiseDownscaler`` on the card and 2,048 cells against the
+    CPU float64 path; prints the ``PipelineReport``, wall, cells/s and peak
+    device memory;
+24. the utilities, each timed on the card and held against the same call
+    on the CPU in float64: ``score_all`` and ``validation_report`` of the
+    pipeline's output, ``spatial_disaggregate`` of 480 coarse 128 x 128
+    months onto 512 x 512 (bilinear and cubic, with and without
+    ``nan_aware``), ``temporal_disaggregate`` of the coarse grid's months
+    onto days, and the CLI (``skdownscale_tpu_torch.cli.main``) with
+    ``--daily-obs``.
 
 The line before the last is a JSON object with each kernel's launches by
 its path, error, times, bound and the one PyTorch call that computes the
@@ -151,6 +169,10 @@ turns at config 5 (K5), at config 8's fut block and config 9b's two calls
 (K6), and at config 2's shape and config 5's K2 shape (K1, K2), config
 9a's rows and 20-year daily rows (K2), with each build's launch shape,
 registers and spills.
+
+``python3 chip_smoke.py --pipeline`` runs only the pipeline phase (23),
+to time a change of ``parallel/pipeline.py`` against another tree's in
+one call.
 """
 
 from __future__ import annotations
@@ -159,6 +181,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -300,6 +323,42 @@ G_TIME, G_Q, G_REF_CELLS_OUT = 3_650, 2_048, 512
 TOL_G_LADDER = 1e-2
 TOL_G = (2e-3, 1e-2)
 TOL_G_LINEAR = (1e-4, 1e-2, 1e-2)
+# the pipeline (ROADMAP Queue 1 A2): monthly BCSD from a zarr v3 blosc store
+# of 512 x 512 = 262,144 cells x 480 months (config 2's data, about 5% NaN
+# cells) back to a zarr v3 blosc store, in 2 bands of 131,072 cells; the
+# store's chunks are bands of 64 rows (63 MB).  Its output against the
+# in-memory runner on the card and 2,048 cells against the CPU float64
+# path, both within the BCSD limits (TOL_P999, TOL_SHARE, TOL_MAX).
+P_LAT, P_LON, P_CHUNK, P_STORE_ROWS = 512, 512, 131_072, 64
+# the utilities on the card against the same call on the CPU in float64:
+# the metrics of the pipeline's output (per cell on U_REF_CELLS cells, the
+# report on them), the spatial step (480 coarse 128 x 128 months onto 512 x
+# 512; U_REF_MONTHS months on the CPU: the step is month by month), the
+# temporal step (the coarse grid's 480 months onto 14,610 days from 10
+# years of daily obs; U_REF_CELLS cells on the CPU: it is cell by cell) and
+# the CLI (64 x 64 cells x 240 months, --daily-obs over 10 years)
+U_COARSE, U_REF_MONTHS, U_REF_CELLS, U_OBS_DAYS = 128, 16, 2_048, 3_652  # obs 1990-1999
+U_CLI_SIDE, U_CLI_MONTHS, U_TD_CELLS = 64, 240, 512
+# float32 sums of 480 values near 283 K round to ~1e-6 (measured on the CPU
+# in float32 against float64 at 2,048 cells: at most 7e-7 over every metric
+# and report entry): 1e-4 in K for rmse, mae, bias and the quantile bias,
+# and in the metric's own unit for pearsonr, r2 and KS
+TOL_METRICS = 1e-4
+# the spatial step: one float32 rounding at ~283 K is 1.5e-5 K, and the
+# resize products add less (measured in float32 on the CPU: 1.7e-5 K at
+# most, bilinear and cubic, with and without nan_aware); NaN masks equal.
+# With nan_aware a fine cell is num / w, w the resize weight of its valid
+# coarse cells: the float32 error of num (16 weights of anomalies up to
+# ~7 K, each rounded at 6e-8 relative: ~7e-6 K) is divided by w, which a
+# cubic kernel beside NaN cells can bring far below 1 (one such cell read
+# 1.01e-4 K on an H100 80GB HBM3 at 700 W), so each value is held to
+# TOL_SD + TOL_SD_NUM / w
+TOL_SD, TOL_SD_NUM = 1e-4, 1e-5
+# the temporal step: the pattern (obs less its month's mean) and the
+# conservation shift each round at ~283 K, some eight roundings (measured in
+# float32 on the CPU at 512 cells: p99.9 8.7e-5 K, max 1.26e-4 K with
+# conserve); cuBLAS sums in another order
+TOL_TD = (2e-4, 5e-4)  # p99.9, max in K
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -2488,6 +2547,269 @@ def configG_phase(rng, card, dev):
     return fit_k6 + tr_k6, rows
 
 
+def bcsd_diff(label, got, want):
+    """Fails unless ``got`` is within the BCSD limits of ``want`` (NaN in
+    the same places); returns the line that states it."""
+    p999, dmax, d = diff_stats(got, want)
+    share = float(np.mean(d > TOL_P999))
+    _check(p999 <= TOL_P999 and share <= TOL_SHARE and dmax <= TOL_MAX,
+           f"{label}: outside the BCSD limits (p99.9 {p999:.6g}, share {share:.6g}, max {dmax:.6g})")
+    return (f"max |diff| {dmax:.6g} K, p99.9 {p999:.6g} K, share above {TOL_P999:g} K {share:.6g} "
+            f"(limits p99.9 <= {TOL_P999:g}, share <= {TOL_SHARE:g}, max <= {TOL_MAX:g})")
+
+
+def pipeline_phase(rng, card, dev, tmp):
+    """The store -> card -> store pipeline at 262,144 cells x 480 months:
+    a zarr v3 blosc store written by the port's zarrlite, then a warm-up and
+    one timed ``run_pointwise_pipeline(..., device=dev)`` with
+    ``BcsdTemperature(return_anoms=False)`` in 2 bands.  Checks K1 and K2
+    launched once per band, pinned staging, the output's time index and NaN
+    cells, every cell against ``PointWiseDownscaler`` on the card and 2,048
+    cells against the CPU float64 path.  Returns the obs and the corrected
+    output as (cells, months) float32 and the launches."""
+    import os
+
+    import pandas as pd
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.parallel.pipeline import run_pointwise_pipeline
+    from skdownscale_tpu_torch.parallel.zarr_io import ZarrGridSource
+    from skdownscale_tpu_torch.utils import zarrlite
+
+    index = pd.date_range("1970-01-01", periods=N_TIME, freq="MS")
+    seasonal = (8.0 * np.sin(2 * np.pi * (index.month.to_numpy() - 1) / 12)).astype(np.float32)
+    X, Y, nan_cells = make_grid(rng, index, seasonal, P_LAT, P_LON)
+    C, T = P_LAT * P_LON, N_TIME
+    store_in = os.path.join(tmp, "in.zarr")
+    t0 = time.perf_counter()
+    zarrlite.save_group(store_in, {"gcm": X.values, "obs": Y.values},
+                        chunks=(T, P_STORE_ROWS, P_LON), compressor="blosc", zarr_format=3)
+    zarrlite.save_array(store_in, np.asarray(index, dtype="datetime64[ns]").view(np.int64),
+                        prefix="time", zarr_format=3, attrs={"kind": "datetime64[ns]"})
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(store_in) for f in fs)
+    print(f"pipeline: input store gcm + obs {T} months x {C} cells float32, {int(nan_cells.sum())} NaN "
+          f"cells, zarr v3 blosc chunks of {P_STORE_ROWS} rows: {size / 1e9:.3f} GB on disk, written "
+          f"in {time.perf_counter() - t0:.2f} s")
+
+    def run(name):
+        return run_pointwise_pipeline(store_in, os.path.join(tmp, name),
+                                      sdt.BcsdTemperature(return_anoms=False),
+                                      cell_chunk=P_CHUNK, device=dev)
+
+    run("warm.zarr")  # warm-up: CUDA context, cuBLAS, cached group tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rep = run("out.zarr")
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _check(rep.n_chunks == 2, f"pipeline: {rep.n_chunks} bands, not 2")
+    for name in ("count_sort_segments", "rank_map_segments"):
+        _check(launches.get(name, 0) == rep.n_chunks,
+               f"pipeline: {name} launched {launches.get(name, 0)} times, not once per band")
+    _check(rep.stages["pinned"], "pipeline: a host staging buffer is not pinned")
+    src = ZarrGridSource(os.path.join(tmp, "out.zarr"), "corrected")
+    _check(isinstance(src.index, pd.DatetimeIndex) and src.index.equals(index),
+           "pipeline: the output's time member does not read back as the input's DatetimeIndex")
+    t0 = time.perf_counter()
+    got = src.read_cells(0, C, dtype=np.float32)  # (C, T)
+    t_read = time.perf_counter() - t0
+    _check(np.isnan(got[nan_cells]).all() and np.isfinite(got[~nan_cells]).all(),
+           "pipeline: NaN cells or valid cells came out wrong")
+    print(f"pipeline: {rep.summary()}; card {card}")
+    print(f"pipeline: run_pointwise_pipeline(BcsdTemperature(return_anoms=False), cell_chunk={P_CHUNK}) "
+          f"{C} cells x {T} months zarr v3 blosc in and out: wall {wall:.4f} s, {C / wall:.1f} cells/s; "
+          f"read {rep.read_s:.4f} s, pack {rep.pack_s:.4f} s, h2d issue {rep.put_s:.4f} s (copies on "
+          f"the card {rep.stages['h2d_device_s'] * 1e3:.3f} ms in, {rep.stages['d2h_device_s'] * 1e3:.3f} "
+          f"ms out), device {rep.device_s * 1e3:.3f} ms (CUDA events), write {rep.write_s:.4f} s, "
+          f"overlap {rep.overlap_s:.4f} s; peak device memory {peak / 2**30:.3f} GiB; launches "
+          f"{launches}; staging pinned; output read back in {t_read:.2f} s; card {card}")
+
+    # the first band's fit + predict alone on the card: no worker thread, no store IO
+    from skdownscale_tpu_torch.models import batched
+
+    band = np.nonzero(~nan_cells[:P_CHUNK])[0]
+    xb, yb = (torch.from_numpy(np.ascontiguousarray(A.values.reshape(T, C)[:, band].T)).to(dev)
+              for A in (X, Y))
+    est = sdt.BcsdTemperature(return_anoms=False)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    batched.batched_predict(est, batched.batched_fit(est, index, xb[..., None], yb), index,
+                            xb[..., None], index)
+    ev[1].record()
+    torch.cuda.synchronize()
+    print(f"pipeline: one band's fit + predict alone ({len(band)} cells, CUDA events, no worker "
+          f"thread): {ev[0].elapsed_time(ev[1]):.3f} ms; in the pipeline {rep.device_s / rep.n_chunks * 1e3:.3f} "
+          f"ms a band")
+    del xb, yb
+
+    # every cell against the in-memory runner on the card
+    model = sdt.PointWiseDownscaler(sdt.BcsdTemperature(return_anoms=False), device=dev)
+    ref = np.ascontiguousarray(model.fit(X, Y).predict(X).values.reshape(T, C).T)
+    same = np.array_equal(got, ref, equal_nan=True)
+    print(f"pipeline vs PointWiseDownscaler on the card, {C} cells: "
+          f"{'bitwise equal' if same else bcsd_diff('pipeline vs the card runner', got, ref)}")
+    del model, ref
+    # 2,048 cells against the CPU float64 path
+    ids = np.sort(rng.choice(np.nonzero(~nan_cells)[0], N_REF_CELLS, replace=False))
+    cpu = sdt.PointWiseDownscaler(sdt.BcsdTemperature(return_anoms=False), device="cpu")
+    want = cpu.fit(cpu_subset(X, ids), cpu_subset(Y, ids)).predict(cpu_subset(X, ids)).values.T
+    print(f"pipeline: {N_REF_CELLS} cells vs CPU float64: {bcsd_diff('pipeline vs CPU float64', got[ids], want)}")
+    obs = np.ascontiguousarray(Y.values.reshape(T, C).T)
+    return obs, got, launches
+
+
+def utilities_phase(rng, card, dev, obs, pred, tmp):
+    """The utilities on the card, each timed and held against the same call
+    on the CPU in float64: ``score_all`` and ``validation_report`` on the
+    pipeline's output, ``spatial_disaggregate`` (bilinear and cubic, with
+    and without ``nan_aware``), ``temporal_disaggregate`` and the CLI with
+    ``--daily-obs``."""
+    import os
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    import pandas as pd
+    import torch
+
+    from skdownscale_tpu_torch import cli
+    from skdownscale_tpu_torch.utils import disagg, metrics
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # metrics of the pipeline's output, then the same on U_REF_CELLS cells on the CPU
+    yt, yp = torch.from_numpy(obs).to(dev), torch.from_numpy(pred).to(dev)
+    timed(lambda: metrics.score_all(yt, yp))  # warm-up
+    scores, ms_score = timed(lambda: metrics.score_all(yt, yp))
+    report, ms_report = timed(lambda: metrics.validation_report(yt, {"corrected": yp}))
+    valid = np.nonzero(np.isfinite(obs[:, 0]))[0]
+    ids = np.sort(rng.choice(valid, U_REF_CELLS, replace=False))
+    t64, p64 = torch.from_numpy(obs[ids].astype(np.float64)), torch.from_numpy(pred[ids].astype(np.float64))
+    want = metrics.score_all(t64, p64)
+    worst = max(float((scores[k][ids].double().cpu() - want[k]).abs().max()) for k in want)
+    sub = metrics.validation_report(yt[ids], {"corrected": yp[ids]}).to_numpy()
+    sub_err = float(np.abs(sub - metrics.validation_report(t64, {"corrected": p64}).to_numpy()).max())
+    _check(worst <= TOL_METRICS and sub_err <= TOL_METRICS,
+           f"metrics: card vs CPU float64 {worst:.3g} / {sub_err:.3g} above {TOL_METRICS:g}")
+    print(f"utilities: score_all on {obs.shape[0]} cells x {obs.shape[1]} months {ms_score:.3f} ms, "
+          f"validation_report {ms_report:.3f} ms on the card ({report.round(4).to_dict('records')[0]}); "
+          f"{U_REF_CELLS} cells vs CPU float64: per-cell metrics max |diff| {worst:.3g}, report "
+          f"{sub_err:.3g} (limit {TOL_METRICS:g}); card {card}")
+    del yt, yp, scores
+
+    # the spatial step: 480 coarse 128 x 128 months onto 512 x 512
+    nan_coarse = rng.random((U_COARSE, U_COARSE)) < NAN_CELL_SHARE
+    anoms = rng.standard_normal((N_TIME, U_COARSE, U_COARSE), dtype=np.float32) * np.float32(1.5)
+    climo = (283.0 + 3.0 * rng.standard_normal((12, P_LAT, P_LON), dtype=np.float32)).astype(np.float32)
+    labels = np.arange(N_TIME) % 12
+    m = U_REF_MONTHS
+    for method in ("bilinear", "cubic"):
+        for nan_aware in (False, True):
+            src = anoms.copy()
+            if nan_aware:  # NaN cells, renormalised away; without it NaN spreads everywhere
+                src[:, nan_coarse] = np.nan
+            src_d = torch.from_numpy(src).to(dev)
+            call = lambda: disagg.spatial_disaggregate(  # noqa: E731
+                src_d, climo, labels, method=method, nan_aware=nan_aware, device=dev)
+            timed(call)
+            out, ms = timed(call)
+            got = out[:m].double().cpu().numpy()
+            del out
+            want = disagg.spatial_disaggregate(src[:m].astype(np.float64), climo.astype(np.float64),
+                                               labels[:m], method=method, nan_aware=nan_aware,
+                                               device="cpu").numpy()
+            _, dmax, _ = diff_stats(got, want)
+            # the weight of the valid coarse cells at each fine cell (1 without NaN)
+            w = disagg.interp_to_fine(torch.from_numpy(np.isfinite(src[:m]).astype(np.float64)),
+                                      (P_LAT, P_LON), method=method).abs().numpy()
+            ok = np.isfinite(want)
+            d, w = np.abs(got - want)[ok], w[ok]
+            worst = float((d / (TOL_SD + TOL_SD_NUM / w)).max())
+            low = w < 0.5
+            _check(worst <= 1.0, f"spatial_disaggregate {method} nan_aware={nan_aware}: |diff| at "
+                                 f"{worst:.3g} of its limit TOL_SD + TOL_SD_NUM / weight (max {dmax:.3g} K)")
+            print(f"utilities: spatial_disaggregate({method}, nan_aware={nan_aware}) {N_TIME} months "
+                  f"{U_COARSE}x{U_COARSE} -> {P_LAT}x{P_LON}: {ms:.3f} ms on the card; {m} months vs "
+                  f"CPU float64 max |diff| {dmax:.3g} K, {int(low.sum())} values of valid weight below "
+                  f"0.5 (max |diff| there {float(d[low].max()) if low.any() else 0.0:.3g} K), worst "
+                  f"{worst:.3g} of the limit {TOL_SD:g} K + {TOL_SD_NUM:g} K / weight, NaN share "
+                  f"{float(np.isnan(want).mean()):.4g}; card {card}")
+            del src_d
+
+    # the temporal step: the coarse grid's 480 months onto days
+    mi = pd.date_range("1970-01-01", periods=N_TIME, freq="MS")
+    seas_m = (8.0 * np.sin(2 * np.pi * (mi.month.to_numpy() - 1) / 12)).astype(np.float32)
+    Cc = U_COARSE * U_COARSE
+    monthly = (283.0 + seas_m[:, None]
+               + rng.standard_normal((N_TIME, Cc), dtype=np.float32) * np.float32(1.5))
+    oi = pd.date_range("1990-01-01", periods=U_OBS_DAYS, freq="D")
+    seas_d = (8.0 * np.sin(2 * np.pi * (oi.dayofyear.to_numpy() - 1) / 365.25)).astype(np.float32)
+    obs_d = 283.0 + seas_d[:, None] + rng.standard_normal((U_OBS_DAYS, Cc), dtype=np.float32) * np.float32(2.0)
+    md, od = torch.from_numpy(monthly).to(dev), torch.from_numpy(obs_d).to(dev)
+    call = lambda: disagg.temporal_disaggregate(md, mi, od, oi)  # noqa: E731
+    timed(call)
+    out, ms = timed(call)
+    cols = np.sort(rng.choice(Cc, U_TD_CELLS, replace=False))
+    got = out[:, cols].double().cpu().numpy()
+    n_days = out.shape[0]
+    del out, md, od
+    want = disagg.temporal_disaggregate(monthly[:, cols].astype(np.float64), mi,
+                                        obs_d[:, cols].astype(np.float64), oi, device="cpu").numpy()
+    p999, dmax, _ = diff_stats(got, want)
+    _check(p999 <= TOL_TD[0] and dmax <= TOL_TD[1],
+           f"temporal_disaggregate: p99.9 {p999:.3g}, max {dmax:.3g} K outside {TOL_TD}")
+    print(f"utilities: temporal_disaggregate {N_TIME} months -> {n_days} days x {Cc} cells from "
+          f"{U_OBS_DAYS} days of obs: {ms:.3f} ms on the card; {U_TD_CELLS} cells vs CPU float64 p99.9 "
+          f"{p999:.3g} K, max {dmax:.3g} K (limits {TOL_TD[0]:g}, {TOL_TD[1]:g}); card {card}")
+
+    # the CLI with --daily-obs, on the card and on the CPU in float64
+    side, T = U_CLI_SIDE, U_CLI_MONTHS
+    mi = mi[:T]
+    seas_m = seas_m[:T, None, None]
+    # float32 values, written as float32 for the card and as float64 for the CPU
+    o = (283.0 + seas_m + rng.normal(0, 2, (T, side, side))).astype(np.float32)
+    r = (o + 1.5 + rng.normal(0, 0.5, o.shape)).astype(np.float32)
+    od = (283.0 + seas_d[:, None, None] + rng.normal(0, 2, (U_OBS_DAYS, side, side))).astype(np.float32)
+    files = {}
+    for dtype in (np.float32, np.float64):
+        for name, data, idx in (("obs", o, mi), ("ref", r, mi), ("obsd", od, oi)):
+            path = os.path.join(tmp, f"{name}{np.dtype(dtype).itemsize}.npz")
+            np.savez(path, data=data.astype(dtype), time=np.asarray(idx).astype("datetime64[ns]"))
+            files[name, dtype] = path
+
+    def run_cli(dtype, device):
+        out_path = os.path.join(tmp, f"cli_{np.dtype(dtype).itemsize}.npz")
+        argv = ["--obs", files["obs", dtype], "--ref", files["ref", dtype], "--predict",
+                files["ref", dtype], "--no-anoms", "--daily-obs", files["obsd", dtype],
+                "--out", out_path, "--device", device]
+        log = StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(log):
+            cli.main(argv)
+        wall = time.perf_counter() - t0
+        with np.load(out_path) as a, np.load(out_path + ".daily.npz") as b:
+            return a["data"], b["data"], wall, [ln for ln in log.getvalue().splitlines() if ln.startswith("{")]
+
+    run_cli(np.float32, str(dev))  # warm-up
+    g_m, g_d, wall, lines = run_cli(np.float32, str(dev))
+    w_m, w_d, wall_cpu, _ = run_cli(np.float64, "cpu")
+    _check(g_m.dtype == np.float32 and w_d.dtype == np.float64, "CLI: output dtypes")
+    monthly_line = bcsd_diff("CLI monthly", g_m, w_m)
+    daily_line = bcsd_diff("CLI daily", g_d, w_d)
+    print(f"utilities: CLI --daily-obs on {side}x{side} cells x {T} months ({g_d.shape[0]} days out): "
+          f"wall {wall:.4f} s on the card ({wall_cpu:.4f} s on the CPU in float64), JSON lines {lines}; "
+          f"monthly vs CPU float64 {monthly_line}; daily {daily_line}; card {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2506,6 +2828,11 @@ def main() -> int:
         print(card)  # nvidia-smi's own line: name, power limit
         if sys.argv[1:2] == ["--trials"]:
             trials(torch.device("cuda", 0), sys.argv[2:])
+            print(card)
+            return 0
+        if sys.argv[1:2] == ["--pipeline"]:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                pipeline_phase(np.random.default_rng(SEED), card, torch.device("cuda", 0), tmp)
             print(card)
             return 0
         t0 = time.perf_counter()
@@ -2606,6 +2933,12 @@ def main() -> int:
         g_k6, _ = configG_phase(rng, card, dev)
         launches["batched_interp"] += g_k6
         mark("config G")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            obs, pred, _ = pipeline_phase(rng, card, dev, tmp)
+            mark("the pipeline")
+            utilities_phase(rng, card, dev, obs, pred, tmp)
+            del obs, pred
+            mark("the utilities")
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

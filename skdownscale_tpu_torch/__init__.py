@@ -14,7 +14,9 @@ sklearn-style estimator takes its per-cell loop) and the single-cell API,
 ``GroupedRegressor``, multivariate MBCn (``MBCn``,
 ``models.mbc.mbcn_grid``) and the pooled models of ``global_models``
 (``GlobalLinearRegressor``, ``GlobalQuantileMapper``,
-``GlobalDownscaler``) on one device, with
+``GlobalDownscaler``) on one device, the store -> device -> store pipeline
+(``parallel.pipeline``), checkpoints, metrics, disaggregation and
+profiling (``utils``) and the BCSD command line (``cli``), with
 hand-written CUDA kernels for the segment count-sort, rank-map, sliding
 sorted window, batched table interpolation, the fused analog selection and
 statistics, and the row sort with positions and unsort (K9) (``kernels/``,

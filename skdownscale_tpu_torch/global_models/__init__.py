@@ -3,7 +3,8 @@
 Port of ``skdownscale_tpu/global_models``: pooled fits are reductions
 across the cell axis of a grid (a pooled least-squares problem, one pooled
 quantile ladder), where the pointwise zoo fits each cell alone.  The
-sharded forms wait for the multi-device layer (ROADMAP Queue 1 A item 5).
+sharded forms wait for the multi-device layer (ROADMAP Queue 1 A, "The
+multi-device layer").
 """
 
 from .downscaler import GlobalDownscaler

@@ -11,8 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..parallel.mesh import MULTI_DEVICE_ITEM
+from ..utils.device import as_tensor
 from ..xlite import is_dataarray as _is_dataarray
-from ._device import MULTI_DEVICE_ITEM, as_tensor
 
 __all__ = ["GlobalDownscaler"]
 

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.regression import _psolve
-from ._device import as_tensor
+from ..utils.device import as_tensor
 
 __all__ = [
     "GlobalLinearState",

@@ -11,8 +11,8 @@ row of ``cells x time`` knots, the ``Q`` positions as queries).  Transforms
 map each cell row through the one monotone table ``x_ladder -> y_ladder``,
 passed to K6 once as a table shared by every row.  The JAX package's
 sharded path (a per-device sketch merged by ``all_gather``) waits for the
-multi-device layer (ROADMAP Queue 1 A item 5); a mesh of more than one
-device raises.
+multi-device layer (ROADMAP Queue 1 A, "The multi-device layer"); a mesh
+of more than one device raises.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..ops.interp import interp_rows
-from ._device import MULTI_DEVICE_ITEM, as_tensor
+from ..parallel.mesh import MULTI_DEVICE_ITEM
+from ..utils.device import as_tensor
 
 __all__ = [
     "GlobalQuantileState",
@@ -144,7 +145,8 @@ class GlobalQuantileMapper:
     sample_per_shard : int
         Sketch size per device on the sharded path.
     mesh : None
-        A mesh of more than one device raises (ROADMAP Queue 1 A item 5).
+        A mesh of more than one device raises (ROADMAP Queue 1 A, "The
+        multi-device layer").
     device : str or torch.device
         Where numpy inputs go: the card by default (float32), ``"cpu"`` for
         the input's dtype.  Tensors stay on their own device.  Without a

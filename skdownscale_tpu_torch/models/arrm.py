@@ -243,6 +243,8 @@ class ArrmState(NamedTuple):
     x_min: torch.Tensor
     x_max: torch.Tensor
 
+    float64_on_every_device = True  # a checkpoint keeps it so on any device
+
 
 def _fast_breaks(x_min, x_max, k: int):
     qs = torch.as_tensor(np.linspace(0.0, 1.0, k + 2)[1:-1], dtype=x_min.dtype, device=x_min.device)

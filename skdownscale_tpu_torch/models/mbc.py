@@ -40,6 +40,7 @@ import torch
 
 from ..kernels.sort_rows import on_rows
 from ..ops.interp import interp_rows
+from ..parallel.mesh import MULTI_DEVICE_ITEM
 from .base import SingleCellEstimator, asarray_2d
 from .quantile import edcdfm_predict, qmr_fit
 
@@ -377,7 +378,7 @@ def mbcn_grid(
     if sharding is not None:
         raise NotImplementedError(
             "mbcn_grid(sharding=...) waits for the port of the multi-device layer "
-            "(ROADMAP Queue 1 A item 5); pass device= to run on one device"
+            f"({MULTI_DEVICE_ITEM}); pass device= to run on one device"
         )
     if group not in (None, "month"):
         raise ValueError(f"group must be None or 'month', got {group!r}")

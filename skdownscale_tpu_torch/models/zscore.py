@@ -106,7 +106,10 @@ def _doy_window_stats(v, idx, mask, window: int):
     s2 = _window_sum(cat(P2), window, center=True)
     cc = _window_sum(cat(PC), window, center=True).clamp(min=1.0)
     mean = s1 / cc
-    std = torch.sqrt((s2 / cc - mean * mean).clamp(min=0.0))
+    # one rounding for s2/cc - mean^2, as XLA's CPU contraction into an FMA
+    # gives the JAX package: a window of one sample then keeps the same
+    # rounding residue there instead of an exact 0
+    std = torch.sqrt(torch.addcmul(s2 / cc, mean, mean, value=-1.0).clamp(min=0.0))
     trim = window // 2 + 1
     return mean[..., trim:-trim] + mu, std[..., trim:-trim]
 
@@ -129,7 +132,10 @@ def zscore_predict(state: ZScoreState, x, expand_inds, *, window: int = 31):
     the corrected mean and std."""
     fut_mean, fut_std = rolling_mean_std(x, window, center=True, ddof=1)
     fut_zscore = (x - fut_mean) / fut_std
+    # the JAX gather clamps an index past the fitted days to the last one
+    # (a record whose last day of year is before Dec 31 reuses that day)
     inds = torch.as_tensor(np.asarray(expand_inds), dtype=torch.long, device=x.device)
+    inds = inds.clamp(max=state.shift.shape[-1] - 1)
     mean_corr = fut_mean + state.shift[..., inds]
     std_corr = fut_std * state.scale[..., inds]
     return fut_zscore * std_corr + mean_corr, fut_mean, fut_std, mean_corr, std_corr

@@ -1,2 +1,3 @@
-"""Device-layer helpers of the port: so far ``mesh.pad_to_multiple``, the
-one piece of ``skdownscale_tpu/parallel`` that one device needs."""
+"""The port's device layer on one device: ``mesh.pad_to_multiple``, the
+zarr cell-range reader (``zarr_io.ZarrGridSource``) and the store ->
+device -> store pipeline (``pipeline.run_pointwise_pipeline``)."""

@@ -2,15 +2,20 @@
 
 Host copy of ``pad_to_multiple`` from ``skdownscale_tpu/parallel/mesh.py``.
 The port runs on one device; cell sharding over several (``cell_mesh``,
-``cell_sharding``, ``shard_cells``) waits for the multi-device layer
-(ROADMAP Queue 1 A item 5).  Nothing here touches torch.
+``cell_sharding``, ``shard_cells``) waits for the multi-device layer, which
+every sharded caller names by :data:`MULTI_DEVICE_ITEM` when it raises.
+Nothing here touches torch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["pad_to_multiple"]
+__all__ = ["MULTI_DEVICE_ITEM", "pad_to_multiple"]
+
+# the roadmap item the sharded paths wait for, by its title (item numbers
+# change when the roadmap is re-anchored)
+MULTI_DEVICE_ITEM = 'ROADMAP Queue 1 A, "The multi-device layer"'
 
 
 def pad_to_multiple(arr, multiple: int, axis: int = 0, fill=np.nan):

@@ -1,1 +1,2 @@
-"""Host utilities: calendars, native grid packing, the prefetching feed."""
+"""Utilities: calendars, the native host libraries, the prefetching feed,
+zarr stores, checkpoints, metrics, disaggregation and profiling."""

@@ -1,13 +1,12 @@
-"""Where the global models put their arrays: the card unless the caller
-asks for the CPU."""
+"""Where the port's entry points put their tensors: the card unless the
+caller asks for the CPU."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-# the multi-device layer the sharded paths wait for
-MULTI_DEVICE_ITEM = "ROADMAP Queue 1 A item 5"
+__all__ = ["resolve", "as_tensor"]
 
 
 def resolve(device, who: str) -> torch.device:
@@ -16,7 +15,7 @@ def resolve(device, who: str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"{who} runs on the card (device='cuda'), and torch.cuda.is_available() is "
-            "False; pass device='cpu' to run on the CPU in the input's dtype"
+            "False; pass device='cpu' to run on the CPU"
         )
     return dev
 

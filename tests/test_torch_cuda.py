@@ -1043,3 +1043,124 @@ def test_zscore_and_arrm_grids_and_single_cells_on_the_card(cuda_device, rng, mo
     assert np.isfinite(z.shift_).all() and z.predict(frame).shape == (T, 1)
     pw = P.PiecewiseLinearRegression(fit_option="fast").fit(xa[:, :1], ya[:, 0])
     assert np.isfinite(pw.predict(xa[:, :1])).all()
+
+
+@pytest.mark.cuda
+def test_pipeline_on_the_card_stages_pinned_and_matches_the_runner(cuda_device, rng):
+    """``run_pointwise_pipeline`` on the card: pinned staging, K1 and K2
+    once per band, the output against ``PointWiseDownscaler`` on the card
+    and the CPU float64 path within the BCSD limits; a checkpoint of the
+    card's runner loads back on the card and predicts the same bits."""
+    import tempfile
+
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.parallel.pipeline import run_pointwise_pipeline
+    from skdownscale_tpu_torch.parallel.zarr_io import ZarrGridSource
+    from skdownscale_tpu_torch.utils import checkpoint, zarrlite
+
+    T, ny, nx = 240, 12, 16
+    idx = pd.date_range("1980-01-01", periods=T, freq="MS")
+    seas = 8 * np.sin(2 * np.pi * (idx.month.to_numpy() - 1) / 12)[:, None, None]
+    g = (284.5 + seas + rng.normal(0, 2, (T, ny, nx))).astype(np.float32)
+    o = (282.0 + seas + rng.normal(0, 1.8, (T, ny, nx))).astype(np.float32)
+    g[:, 3, 4] = o[:, 3, 4] = np.nan
+    store, out = {}, {}
+    zarrlite.save_group(store, {"gcm": g, "obs": o}, chunks=(T, 4, nx), compressor="zlib", zarr_format=3)
+    zarrlite.save_array(store, np.asarray(idx, dtype="datetime64[ns]").view(np.int64), prefix="time",
+                        zarr_format=3, attrs={"kind": "datetime64[ns]"})
+    LAUNCHES.clear()
+    rep = run_pointwise_pipeline(store, out, cell_chunk=64, device=cuda_device)
+    assert rep.n_chunks == 3 and rep.stages["pinned"] and rep.device_s > 0
+    assert LAUNCHES["count_sort_segments"] == LAUNCHES["rank_map_segments"] == 3
+    got = ZarrGridSource(out, "corrected").read_cells(0, ny * nx, dtype=np.float32)
+    dims, c = ("time", "y", "x"), {"time": idx, "y": np.arange(ny), "x": np.arange(nx)}
+    runner = P.PointWiseDownscaler(P.BcsdTemperature(return_anoms=False)).fit(
+        DataArray(g, dims, c), DataArray(o, dims, c))
+    card = runner.predict(DataArray(g, dims, c)).values.reshape(T, -1).T
+    g64, o64 = DataArray(g.astype(np.float64), dims, c), DataArray(o.astype(np.float64), dims, c)
+    cpu = P.PointWiseDownscaler(P.BcsdTemperature(return_anoms=False), device="cpu").fit(g64, o64)
+    for want in (card, cpu.predict(g64).values.reshape(T, -1).T):  # the BCSD limits
+        npt.assert_array_equal(np.isnan(got), np.isnan(want))
+        d = np.abs(got - want)[np.isfinite(want)]
+        assert np.quantile(d, 0.999) <= 1e-3 and np.mean(d > 1e-3) <= 1e-3 and d.max() <= 5.0
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save(f"{tmp}/m.ckpt", runner)
+        back = checkpoint.load(f"{tmp}/m.ckpt")
+    assert back._state[0].vals.is_cuda
+    npt.assert_array_equal(back.predict(DataArray(g, dims, c)).values, runner.predict(DataArray(g, dims, c)).values)
+
+
+@pytest.mark.cuda
+def test_disaggregation_and_metrics_on_the_card_match_the_cpu(cuda_device, rng):
+    from skdownscale_tpu_torch.utils import disagg, metrics
+
+    anoms = rng.normal(0, 1.5, (24, 16, 16)).astype(np.float32)
+    anoms[:, 2, 3] = np.nan
+    climo = (283 + rng.normal(0, 3, (12, 64, 64))).astype(np.float32)
+    labels = np.arange(24) % 12
+    for method in ("bilinear", "cubic", "nearest", "lanczos3"):
+        got = disagg.spatial_disaggregate(anoms, climo, labels, method=method, nan_aware=True)
+        assert got.is_cuda and got.dtype == torch.float32
+        want = disagg.spatial_disaggregate(anoms.astype(np.float64), climo.astype(np.float64), labels,
+                                           method=method, nan_aware=True, device="cpu")
+        npt.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, equal_nan=True)
+    mi = pd.date_range("2000-01-01", periods=24, freq="MS")
+    oi = pd.date_range("2000-01-01", "2001-12-31", freq="D")
+    monthly = (283 + rng.normal(0, 2, (24, 40))).astype(np.float32)
+    obs = (283 + rng.normal(0, 2, (len(oi), 40))).astype(np.float32)
+    got = disagg.temporal_disaggregate(monthly, mi, obs, oi)
+    want = disagg.temporal_disaggregate(monthly.astype(np.float64), mi, obs.astype(np.float64), oi,
+                                        device="cpu")
+    npt.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-4)
+    t, p = (torch.from_numpy(obs.T.copy()).to(cuda_device), torch.from_numpy(obs.T[::-1].copy()).to(cuda_device))
+    for k, v in metrics.score_all(t, p).items():
+        ref = metrics.score_all(t.double().cpu(), p.double().cpu())[k]
+        npt.assert_allclose(v.double().cpu().numpy(), ref.numpy(), atol=1e-4)
+    rep = metrics.validation_report(t, {"rev": p})
+    ref = metrics.validation_report(t.double().cpu(), {"rev": p.double().cpu()})
+    npt.assert_allclose(rep.to_numpy(), ref.to_numpy(), atol=1e-4)
+    arrays = metrics.validation_report(obs.T, {"rev": obs.T[::-1]})  # arrays go to the card
+    npt.assert_allclose(arrays.to_numpy(), rep.to_numpy(), atol=1e-4)
+
+
+def _tensors(tree):
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["arrm", "zscore"])
+def test_checkpoint_of_a_card_grid_loads_back_on_the_card_bitwise(cuda_device, rng, tmp_path, kind):
+    """A grid fitted on the card loads back on the card in the dtypes it
+    was saved in (ARRM's float64, ZScore's float32) and predicts the same
+    bits; a CPU float64 save loads on the card in float32, except ARRM's
+    state, which is float64 on every device."""
+    from skdownscale_tpu_torch.utils import checkpoint
+
+    freq, T = ("MS", 240) if kind == "arrm" else ("D", 1095)
+    idx = pd.date_range("1980-01-01", periods=T, freq=freq)
+    x = (284.5 + rng.normal(0, 2, (T, 3, 5))).astype(np.float32)
+    y = (282.0 + 0.9 * (x - 284.5) + rng.normal(0, 1, (T, 3, 5))).astype(np.float32)
+    x[:, 1, 2] = y[:, 1, 2] = np.nan
+    dims, c = ("time", "lat", "lon"), {"time": idx, "lat": np.arange(3.0), "lon": np.arange(5.0)}
+
+    def model():
+        return (P.PiecewiseLinearRegression(n_segments=3, fit_option="fast") if kind == "arrm"
+                else P.ZScoreRegressor())
+
+    card = P.PointWiseDownscaler(model(), device=cuda_device).fit(DataArray(x, dims, c), DataArray(y, dims, c))
+    checkpoint.save(str(tmp_path / "card.ckpt"), card)
+    back = checkpoint.load(str(tmp_path / "card.ckpt"), device=cuda_device)
+    for a, b in zip(_tensors(back._state), _tensors(card._state)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+    X = DataArray(x, dims, c)
+    npt.assert_array_equal(back.predict(X).values, card.predict(X).values)
+
+    x64, y64 = DataArray(x.astype(np.float64), dims, c), DataArray(y.astype(np.float64), dims, c)
+    cpu = P.PointWiseDownscaler(model(), device="cpu").fit(x64, y64)
+    checkpoint.save(str(tmp_path / "cpu.ckpt"), cpu)
+    moved = checkpoint.load(str(tmp_path / "cpu.ckpt"), device=cuda_device)
+    want = torch.float64 if kind == "arrm" else torch.float32
+    assert all(t.dtype == want for t in _tensors(moved._state) if t.is_floating_point())
+    npt.assert_allclose(moved.predict(X).values, cpu.predict(x64).values, atol=1e-3, equal_nan=True)

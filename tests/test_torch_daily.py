@@ -355,3 +355,35 @@ def test_interior_nan_follows_the_slide_rule(rng):
     assert 0 < np.isnan(got[0]).sum() < np.isnan(default[0]).sum()
     assert not np.isnan(got[1]).any()
     npt.assert_allclose(got[1], default[1], rtol=0, atol=1e-4)
+
+
+def test_monthly_interior_nan_follows_k2(rng):
+    """F9 of ROADMAP Queue 3: one NaN month in cell 1's y (4 cells x 240
+    months, ``BcsdTemperature(return_anoms=False)``, float32).  The port
+    (plain K1 / K2 on the CPU) agrees with the JAX package's K2 route (its
+    Pallas K1 / K2 in interpret mode): 2 NaN, at two of the February
+    group's top ranks, equal masks, finite values within 1e-4.  The JAX
+    default CPU route fills ties by a cummin that carries the NaN knot to
+    every lower rank: the whole February group of cell 1, 20 NaN."""
+    idx = pd.date_range("1980-01-01", periods=240, freq="MS")
+    seas = 8 * np.sin(2 * np.pi * (idx.month.to_numpy() - 1) / 12)
+    x = (284.5 + seas + rng.normal(0, 2, (4, 240))).astype(np.float32)
+    y = (282.0 + seas + rng.normal(0, 1.8, (4, 240))).astype(np.float32)
+    y[1, 25] = np.nan  # February 1982
+    pm, jm = _models("BcsdTemperature", return_anoms=False)
+    jfg, pfg = jm._fit_groups(idx), pm._fit_groups(idx)
+    jplan = jm._predict_plan(jfg, idx)
+    kw = dict(variable="temperature", return_anoms=False)
+    default = np.asarray(jb.bcsd_predict(jb.bcsd_fit(jnp.asarray(x), jnp.asarray(y), jfg),
+                                         jnp.asarray(x), jplan, **kw))
+    with rowsort.override(force=True, interpret=True):
+        forced = np.asarray(jb.bcsd_predict(jb.bcsd_fit(jnp.asarray(x), jnp.asarray(y), jfg),
+                                            jnp.asarray(x), jplan, **kw))
+    got = pb.bcsd_predict(pb.bcsd_fit(_t(x), _t(y), pfg), _t(x), pm._predict_plan(pfg, idx), **kw)
+    got = got.numpy()
+    assert got.dtype == np.float32
+    npt.assert_array_equal(np.isnan(got), np.isnan(forced))
+    npt.assert_allclose(got, forced, rtol=0, atol=1e-4)
+    assert np.isnan(got).sum() == 2 and np.isnan(got[1]).sum() == 2
+    feb = idx.month.to_numpy() == 2
+    assert np.isnan(default).sum() == 20 and np.isnan(default[1, feb]).all()

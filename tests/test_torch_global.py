@@ -218,12 +218,12 @@ def test_global_downscaler_matches_jax_on_bare_arrays(rng):
 
 def test_sharded_forms_and_a_missing_card_raise(rng, monkeypatch):
     X = rng.normal(0, 1, (4, 30))
-    with pytest.raises(NotImplementedError, match="Queue 1 A item 5"):
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 A, "The multi-device layer"'):
         PGM.GlobalDownscaler(PGM.GlobalLinearRegressor(), sharding=object())
     two = [torch.device("cpu"), torch.device("cpu")]
-    with pytest.raises(NotImplementedError, match="Queue 1 A item 5"):
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 A, "The multi-device layer"'):
         PGM.GlobalQuantileMapper(mesh=two, device="cpu").fit(X, X)
-    with pytest.raises(NotImplementedError, match="Queue 1 A item 5"):
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 A, "The multi-device layer"'):
         PQ.pooled_quantile_table(torch.from_numpy(X), PQ.ladder_positions(8), two)
     # a mesh of one device is the one-device fit
     one = PGM.GlobalQuantileMapper(mesh=[torch.device("cpu")], device="cpu").fit(X, X)

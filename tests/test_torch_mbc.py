@@ -266,7 +266,7 @@ def test_mbcn_grid_errors(rng):
     y2, _, _ = _grids(rng, PDA, PDS, ny=5)
     with pytest.raises(ValueError, match="spatial shapes"):
         PM.mbcn_grid(y2, pxh, pxf, n_iterations=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 A item 5"):
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 A, "The multi-device layer"'):
         PM.mbcn_grid(py, pxh, pxf, n_iterations=2, device="cpu", sharding=object())
     with pytest.raises(ValueError, match="group"):
         PM.mbcn_grid(py, pxh, pxf, n_iterations=2, device="cpu", group="season")

@@ -268,3 +268,44 @@ def test_jax_fitted_state_predicts_the_same_in_the_port(rng):
     inds = JZ.expand_indices(1100)
     want = jax.vmap(lambda s, xx: JZ.zscore_predict(s, xx, jnp.asarray(inds))[0])(jstate, jnp.asarray(x))
     _close(PZ.zscore_predict(state, torch.from_numpy(x), inds)[0], want)
+
+
+def _summer_index(years=range(1990, 1995)):
+    """June to August of each year: days of year 152 to 243, and 244 in the
+    leap year 1992 alone, so windows at that edge hold one sample (whose
+    variance both packages round to the same FMA residue)."""
+    return pd.DatetimeIndex(np.concatenate([
+        pd.date_range(f"{y}-06-01", f"{y}-08-31", freq="D").to_numpy() for y in years]))
+
+
+@pytest.mark.parametrize("case", ["200-days", "300-then-364", "summer-only"])
+def test_days_past_the_fitted_year_reuse_the_last_fitted_day(rng, case):
+    """P1 of ROADMAP Queue 3: a fit whose last day of year is before Dec 31
+    gives fewer fitted days than ``expand_indices`` asks for; the JAX gather
+    clamps such an index to the last fitted day, and so does the port,
+    through the grid and the single-cell API."""
+    if case == "summer-only":
+        fit_idx = pred_idx = _summer_index()
+    else:
+        n_fit, n_pred = (200, 200) if case == "200-days" else (300, 364)
+        fit_idx = pd.date_range("1990-01-01", periods=n_fit, freq="D")
+        pred_idx = pd.date_range("1990-01-01", periods=n_pred, freq="D")
+    C = 5
+    seas = lambda idx: 10.0 * np.sin(2 * np.pi * (idx.dayofyear.to_numpy()[:, None] - 1) / 365.25)
+    x = 283.0 + seas(fit_idx) + rng.normal(0, 2, (len(fit_idx), C)) + 1.5
+    y = 282.0 + seas(fit_idx) + rng.normal(0, 1.8, (len(fit_idx), C))
+    xq = 283.0 + seas(pred_idx) + rng.normal(0, 2, (len(pred_idx), C)) + 1.5
+    dims = ("time", "cell")
+    fc = {"time": fit_idx, "cell": np.arange(C)}
+    pc = {"time": pred_idx, "cell": np.arange(C)}
+    j = J.PointWiseDownscaler(J.ZScoreRegressor()).fit(JDA(x, dims, fc), JDA(y, dims, fc))
+    p = P.PointWiseDownscaler(P.ZScoreRegressor(), device="cpu").fit(PDA(x, dims, fc), PDA(y, dims, fc))
+    want = j.predict(JDA(xq, dims, pc)).values
+    assert np.isfinite(want).any()
+    _close(p.predict(PDA(xq, dims, pc)).values, want)
+
+    X = pd.DataFrame({"t": x[:, 0]}, index=fit_idx)
+    Y = pd.DataFrame({"t": y[:, 0]}, index=fit_idx)
+    Xq = pd.DataFrame({"t": xq[:, 0]}, index=pred_idx)
+    got = P.ZScoreRegressor().fit(X, Y).predict(Xq)
+    _close(got.to_numpy(), J.ZScoreRegressor().fit(X, Y).predict(Xq).to_numpy())

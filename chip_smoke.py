@@ -153,7 +153,27 @@ with a non-zero exit at the first failure, it:
     months onto 512 x 512 (bilinear and cubic, with and without
     ``nan_aware``), ``temporal_disaggregate`` of the coarse grid's months
     onto days, and the CLI (``skdownscale_tpu_torch.cli.main``) with
-    ``--daily-obs``.
+    ``--daily-obs``;
+25. the multi-device layer on the one card: ``cell_mesh()`` (the card's
+    one device) and a mesh of 4 shards of cuda:0 (``cell_mesh([cuda:0] *
+    4)``: repeated devices share the card, their shards run one after
+    another); config 2 through ``PointWiseDownscaler(..., sharding=mesh4)``
+    dense and in the monthly streaming form, bitwise equal to the unsharded
+    card run on every cell, K1 and K2 once a shard (once a chunk a shard),
+    walls and the registry's cores by CUDA events; checkpoints saved on 4
+    shards and loaded on 1, and the reverse, predictions bitwise equal;
+    config G through ``GlobalDownscaler(GlobalQuantileMapper(),
+    sharding=mesh4)``: the sketch ladder (one K6 row of 4 x 8,192 knots)
+    between the exact one-device ladder's quantiles at pp -+ 1 / 8,192, the
+    transform bitwise equal to the unsharded transform through the same
+    ladder, K6 on the merged row against its plain version and timed; the
+    pooled linear models in both modes within float32 limits of the
+    unsharded card fit; config 8 through ``mbcn_grid(...,
+    sharding=cell_sharding(mesh4, 3))``, bitwise equal to the unsharded run,
+    K9 22 times a shard; and two processes of 4 shards of cuda:0 joined by
+    gloo (``python -m skdownscale_tpu_torch.parallel.dryrun``) on the
+    pipeline's store, bitwise equal to one process of the same 8-shard
+    mesh, ladder equal.
 
 The line before the last is a JSON object with each kernel's launches by
 its path, error, times, bound and the one PyTorch call that computes the
@@ -172,13 +192,15 @@ registers and spills.
 
 ``python3 chip_smoke.py --pipeline`` runs only the pipeline phase (23),
 to time a change of ``parallel/pipeline.py`` against another tree's in
-one call.
+one call; ``python3 chip_smoke.py --multi-device`` writes the pipeline's
+store and runs only the multi-device phase (25).
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -323,6 +345,23 @@ G_TIME, G_Q, G_REF_CELLS_OUT = 3_650, 2_048, 512
 TOL_G_LADDER = 1e-2
 TOL_G = (2e-3, 1e-2)
 TOL_G_LINEAR = (1e-4, 1e-2, 1e-2)
+# the multi-device layer: meshes of MESH_SHARDS shards of the one card.  On
+# a mesh config G's sketch takes G_SKETCH_M samples a shard (the default).
+# A shard's sample stands for a run of n_s / m order statistics, so a merged
+# sample's midpoint rank is off by at most sum_s n_s / (2m) = N / (2m), and
+# two neighbouring merged samples lie at most max_s n_s / m = N / (4m)
+# apart (4 equal shards): the sketch ladder at pp lies between the exact
+# quantiles at pp -+ 3 / (4m).  The float32 sample index (j + 0.5) cnt / m
+# loses integers above 2**24 (a shard holds ~6e7 samples: a few samples of
+# rank) and the float32 cumsum of 32,768 weights of ~7,300 rounds the merged
+# ranks by up to 8 a step (a random walk of ~1,500 samples, 6e-6 of N), so
+# the limit takes delta = TOL_G_SKETCH_RANK / m = 1 / m of rank either side,
+# plus TOL_G_SKETCH_K for the float32 rounding of ladder values at ~283 K.
+# The pooled linear sums on the mesh differ from the unsharded card fit only
+# in the order of their float32 additions (per-shard partials, then four
+# adds): held to TOL_G_LINEAR as against the CPU.
+MESH_SHARDS, G_SKETCH_M = 4, 8192
+TOL_G_SKETCH_RANK, TOL_G_SKETCH_K = 1.0, 1e-4
 # the pipeline (ROADMAP Queue 1 A2): monthly BCSD from a zarr v3 blosc store
 # of 512 x 512 = 262,144 cells x 480 months (config 2's data, about 5% NaN
 # cells) back to a zarr v3 blosc store, in 2 bands of 131,072 cells; the
@@ -2558,6 +2597,34 @@ def bcsd_diff(label, got, want):
             f"(limits p99.9 <= {TOL_P999:g}, share <= {TOL_SHARE:g}, max <= {TOL_MAX:g})")
 
 
+def pipeline_store(rng, tmp):
+    """The pipeline's input: gcm and obs of P_LAT x P_LON cells x N_TIME
+    months (config 2's data, about 5% NaN cells) and their ``time`` member,
+    written as a zarr v3 blosc store ``tmp/in.zarr`` by the port's
+    zarrlite.  Returns (X, Y, nan_cells, index, store path)."""
+    import os
+
+    import pandas as pd
+
+    from skdownscale_tpu_torch.utils import zarrlite
+
+    index = pd.date_range("1970-01-01", periods=N_TIME, freq="MS")
+    seasonal = (8.0 * np.sin(2 * np.pi * (index.month.to_numpy() - 1) / 12)).astype(np.float32)
+    X, Y, nan_cells = make_grid(rng, index, seasonal, P_LAT, P_LON)
+    C, T = P_LAT * P_LON, N_TIME
+    store_in = os.path.join(tmp, "in.zarr")
+    t0 = time.perf_counter()
+    zarrlite.save_group(store_in, {"gcm": X.values, "obs": Y.values},
+                        chunks=(T, P_STORE_ROWS, P_LON), compressor="blosc", zarr_format=3)
+    zarrlite.save_array(store_in, np.asarray(index, dtype="datetime64[ns]").view(np.int64),
+                        prefix="time", zarr_format=3, attrs={"kind": "datetime64[ns]"})
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(store_in) for f in fs)
+    print(f"pipeline: input store gcm + obs {T} months x {C} cells float32, {int(nan_cells.sum())} NaN "
+          f"cells, zarr v3 blosc chunks of {P_STORE_ROWS} rows: {size / 1e9:.3f} GB on disk, written "
+          f"in {time.perf_counter() - t0:.2f} s")
+    return X, Y, nan_cells, index, store_in
+
+
 def pipeline_phase(rng, card, dev, tmp):
     """The store -> card -> store pipeline at 262,144 cells x 480 months:
     a zarr v3 blosc store written by the port's zarrlite, then a warm-up and
@@ -2576,22 +2643,9 @@ def pipeline_phase(rng, card, dev, tmp):
     from skdownscale_tpu_torch.kernels import LAUNCHES
     from skdownscale_tpu_torch.parallel.pipeline import run_pointwise_pipeline
     from skdownscale_tpu_torch.parallel.zarr_io import ZarrGridSource
-    from skdownscale_tpu_torch.utils import zarrlite
 
-    index = pd.date_range("1970-01-01", periods=N_TIME, freq="MS")
-    seasonal = (8.0 * np.sin(2 * np.pi * (index.month.to_numpy() - 1) / 12)).astype(np.float32)
-    X, Y, nan_cells = make_grid(rng, index, seasonal, P_LAT, P_LON)
+    X, Y, nan_cells, index, store_in = pipeline_store(rng, tmp)
     C, T = P_LAT * P_LON, N_TIME
-    store_in = os.path.join(tmp, "in.zarr")
-    t0 = time.perf_counter()
-    zarrlite.save_group(store_in, {"gcm": X.values, "obs": Y.values},
-                        chunks=(T, P_STORE_ROWS, P_LON), compressor="blosc", zarr_format=3)
-    zarrlite.save_array(store_in, np.asarray(index, dtype="datetime64[ns]").view(np.int64),
-                        prefix="time", zarr_format=3, attrs={"kind": "datetime64[ns]"})
-    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(store_in) for f in fs)
-    print(f"pipeline: input store gcm + obs {T} months x {C} cells float32, {int(nan_cells.sum())} NaN "
-          f"cells, zarr v3 blosc chunks of {P_STORE_ROWS} rows: {size / 1e9:.3f} GB on disk, written "
-          f"in {time.perf_counter() - t0:.2f} s")
 
     def run(name):
         return run_pointwise_pipeline(store_in, os.path.join(tmp, name),
@@ -2810,6 +2864,358 @@ def utilities_phase(rng, card, dev, obs, pred, tmp):
           f"monthly vs CPU float64 {monthly_line}; daily {daily_line}; card {card}")
 
 
+def same_bits(a, b) -> bool:
+    """Whether two host float arrays hold the same bits (NaN payloads too)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def runner_stages(X, Y, where):
+    """The grid runner's stages of one dense monthly BCSD fit + predict
+    (``PointWiseDownscaler``'s steps, on one device or shard by shard on a
+    mesh), each between two synchronises, host-clock ms summed over the
+    shards."""
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.models import batched
+    from skdownscale_tpu_torch.parallel.mesh import on_device
+    from skdownscale_tpu_torch.utils import native
+
+    m = sdt.PointWiseDownscaler(sdt.BcsdTemperature(return_anoms=False), **where)
+    est = m._model
+    t = {}
+    lap = lapper(t)
+    px = lap("pack grid", lambda: m._pack(m._to_feature_x(X)))
+    py = lap("pack grid", lambda: m._pack(m._to_feature_x(Y)))
+    ids = lap("cell mask", lambda: np.nonzero(native.valid_mask(px["flat"][0, 0]))[0].astype(np.int32))
+    idx = px["index"]
+    hx = lap("compact cells", lambda: native.pack_compact(px["flat"], ids))
+    hy = lap("compact cells", lambda: native.pack_compact(py["flat"], ids))
+    out_v = np.empty((len(ids), hx.shape[1], 1), np.float32)
+    for off, sub, d in m._shards(ids):
+        n = len(sub)
+        xd = lap("host to device", lambda: torch.from_numpy(hx[off:off + n]).to(d))
+        yd = lap("host to device", lambda: torch.from_numpy(hy[off:off + n]).to(d))[:, :, 0]
+        with on_device(d), batched.pass_shard(off, len(ids)):
+            st = lap("fit", lambda: batched.batched_fit(est, idx, xd, yd))
+            out = lap("predict", lambda: batched.batched_predict(est, st, idx, xd, idx))
+        lap("device to host", lambda: torch.from_numpy(out_v[off:off + n]).copy_(out[..., None]))
+    lap("scatter cells", lambda: native.unpack_scatter(out_v, ids, px["n_cells"]))
+    return t
+
+
+def mesh_config2(X, Y, nan_cells, card, dev, mesh4, tmp):
+    """Config 2 through ``PointWiseDownscaler(..., sharding=mesh4)``, dense
+    and in the monthly streaming form: bitwise equal to the unsharded card
+    run on every cell, K1 and K2 launched once a shard (streaming: once a
+    chunk a shard), walls, and the registry's cores on the compacted cells
+    by CUDA events, unsharded and shard by shard; then the checkpoints
+    (saved on 4 shards and loaded on 1, and the reverse), predictions
+    bitwise equal."""
+    import os
+    from unittest import mock
+
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.models import batched
+    from skdownscale_tpu_torch.models.batched import GROUP_CHUNK
+    from skdownscale_tpu_torch.parallel.mesh import split_sizes
+    from skdownscale_tpu_torch.utils import checkpoint
+
+    T = N_TIME
+    index = X.coords["time"]
+    valid = ~nan_cells
+    xv = torch.from_numpy(np.ascontiguousarray(X.values.reshape(T, -1)[:, valid].T)).to(dev)
+    yv = torch.from_numpy(np.ascontiguousarray(Y.values.reshape(T, -1)[:, valid].T)).to(dev)
+    sizes = split_sizes(xv.shape[0], MESH_SHARDS)
+    bounds = np.cumsum([0, *sizes])
+    kept = {}
+    for form, threshold in (("dense", batched.STREAMING_CELL_THRESHOLD), ("streaming", 0)):
+        label = f"mesh config 2 {form}"
+        per_shard = 1 if form == "dense" else -(-12 // GROUP_CHUNK["monthly"])
+        with mock.patch.object(batched, "STREAMING_CELL_THRESHOLD", threshold):
+            def run(**where):  # (model, output, fit wall, fit + predict wall)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = sdt.PointWiseDownscaler(sdt.BcsdTemperature(return_anoms=False), **where).fit(X, Y)
+                torch.cuda.synchronize()
+                t_fit = time.perf_counter() - t0
+                out = m.predict(X).values
+                return m, out, t_fit, time.perf_counter() - t0
+
+            one_model, one, fit1, wall1 = run(device=dev)  # warm: config 2 ran before
+            run(sharding=mesh4)  # warm-up
+            LAUNCHES.clear()
+            four_model, four, fit4, wall4 = run(sharding=mesh4)
+            launches = dict(LAUNCHES)
+            est = sdt.BcsdTemperature(return_anoms=False)
+
+            def cores(lo, hi, n_pass):
+                with batched.pass_shard(lo, n_pass):
+                    st = batched.batched_fit(est, index, xv[lo:hi, :, None], yv[lo:hi])
+                    return batched.batched_predict(est, st, index, xv[lo:hi, :, None], index)
+
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            cores(0, xv.shape[0], xv.shape[0])  # warm-up
+            ev[0].record()
+            cores(0, xv.shape[0], xv.shape[0])
+            ev[1].record()
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                cores(int(lo), int(hi), xv.shape[0])
+            ev[2].record()
+            torch.cuda.synchronize()
+        _check(isinstance(four_model._state[0][0], batched._bcsd.BcsdLazyState) == (form == "streaming"),
+               f"{label}: the runner did not take the {form} form")
+        _check(same_bits(one, four), f"{label}: the 4-shard output differs from the unsharded card run")
+        for name in ("count_sort_segments", "rank_map_segments"):
+            _check(launches.get(name, 0) == MESH_SHARDS * per_shard,
+                   f"{label}: {name} launched {launches.get(name, 0)} times, not {per_shard} a shard "
+                   f"x {MESH_SHARDS}")
+        print(f"{label}: PointWiseDownscaler(BcsdTemperature(return_anoms=False), sharding=mesh4) "
+              f"{X.values.shape[1] * X.values.shape[2]} cells x {T} months: bitwise equal to the "
+              f"unsharded card run on every cell; wall {wall4:.4f} s, fit {fit4:.4f} s (unsharded "
+              f"{wall1:.4f} s, fit {fit1:.4f} s); the "
+              f"registry's cores on the {xv.shape[0]} valid cells by CUDA events: 4 shards "
+              f"{ev[1].elapsed_time(ev[2]):.3f} ms, unsharded {ev[0].elapsed_time(ev[1]):.3f} ms; "
+              f"launches {launches}; card {card}")
+        kept[form] = (one_model, one, four_model, four)
+    del xv, yv
+    stages = [runner_stages(X, Y, where) for where in ({"sharding": mesh4}, {"device": dev})]
+    print("mesh config 2 dense: stages of one fit + predict (ms, host clock, synchronised; 4 shards | "
+          "unsharded): " + ", ".join(f"{k} {stages[0][k]:.3f} | {stages[1].get(k, 0.0):.3f}" for k in stages[0])
+          + f"; card {card}")
+
+    # checkpoints, dense: saved on 4 shards, loaded on 1; saved on 1, loaded on 4
+    one_model, one, four_model, four = kept["dense"]
+    t0 = time.perf_counter()
+    checkpoint.save(os.path.join(tmp, "mesh4.npz"), four_model)
+    checkpoint.save(os.path.join(tmp, "mesh1.npz"), one_model)
+    back1 = checkpoint.load(os.path.join(tmp, "mesh4.npz"), device=dev)
+    back4 = checkpoint.load(os.path.join(tmp, "mesh1.npz"), sharding=mesh4)
+    got1, got4 = back1.predict(X).values, back4.predict(X).values
+    wall = time.perf_counter() - t0
+    _check(back1.sharding is None and back4.sharding is mesh4 and len(back4._state[0]) == MESH_SHARDS,
+           "mesh checkpoints: the loaded runners are not on the meshes asked for")
+    _check(same_bits(got1, four), "mesh checkpoints: saved on 4 shards, loaded on 1: predictions differ")
+    _check(same_bits(got4, one), "mesh checkpoints: saved on 1, loaded on 4 shards: predictions differ")
+    print(f"mesh checkpoints (config 2 dense): saved on 4 shards and loaded on 1, and the reverse: "
+          f"predictions bitwise equal; both saves, loads and predicts {wall:.4f} s; card {card}")
+
+
+def mesh_configG(rng, card, dev, mesh4, exact_row_ms):
+    """Config G on a 4-shard mesh: ``GlobalDownscaler(GlobalQuantileMapper(),
+    sharding=mesh4)`` (the sketch ladder) against the exact one-device
+    ladder within the sketch's rank limit, its transform bitwise equal to
+    the unsharded transform through the same ladder, K6 timed on the merged
+    row; ``GlobalLinearRegressor`` in both modes against the unsharded fit
+    on the card within the float32 limits."""
+    from unittest import mock
+
+    import torch
+
+    import skdownscale_tpu_torch as sdt
+    from skdownscale_tpu_torch.global_models import quantile as PQ
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.kernels import interp as I
+    from skdownscale_tpu_torch.ops import interp as OI
+
+    X, Y, _, nan_cells = quantile_grid(rng, Q_CELLS, Q_SIDE, G_TIME, None)
+    C = Q_CELLS
+    x32 = torch.from_numpy(X.values.reshape(G_TIME, C)).to(dev).T.contiguous()  # (C, T) on the card
+
+    def fit4():
+        return sdt.GlobalDownscaler(sdt.GlobalQuantileMapper(sample_per_shard=G_SKETCH_M), sharding=mesh4).fit(X, Y)
+
+    fit4().transform(X)  # warm-up
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    gd = fit4()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    fit_k6 = LAUNCHES["batched_interp"]
+    LAUNCHES.clear()
+    out = gd.transform(X)
+    wall = time.perf_counter() - t0
+    tr_k6 = LAUNCHES["batched_interp"]
+    _check(fit_k6 == 2 and tr_k6 == MESH_SHARDS,
+           f"mesh config G: K6 launched {fit_k6} times by the fit (2 merged ladders) and {tr_k6} by "
+           f"transform ({MESH_SHARDS}, one a shard)")
+    st = gd._model.state_
+    _check(int(st.n_x) == int(np.isfinite(X.values).sum()), "mesh config G: the sketch's sample count is off")
+    got = np.moveaxis(np.asarray(out.values), -1, 0).reshape(G_TIME, C)
+
+    # the exact one-device ladder at pp and at pp -+ delta: the sketch
+    # ladder must lie between the exact quantiles delta either side
+    pp = st.pp
+    delta = TOL_G_SKETCH_RANK / G_SKETCH_M
+    shifted = torch.cat([(pp - delta).clamp(0, 1), pp, (pp + delta).clamp(0, 1)])
+    exact3, n_e = PQ.pooled_quantile_table(x32, shifted)
+    lo, exact, hi = exact3.double().cpu().numpy().reshape(3, -1)
+    sk = st.x_ladder.double().cpu().numpy()
+    below = float(np.max(lo - sk))
+    above = float(np.max(sk - hi))
+    dmax = float(np.max(np.abs(sk - exact)))
+    print(f"mesh config G: sketch x_ladder ({len(sk)} quantiles, {MESH_SHARDS} shards x {G_SKETCH_M} samples) "
+          f"vs the exact one-device ladder: max |diff| {dmax:.6g} K; below the exact quantile at pp - "
+          f"{delta:.3g} by at most {max(below, 0):.6g} K, above the one at pp + {delta:.3g} by at most "
+          f"{max(above, 0):.6g} K (limits {TOL_G_SKETCH_K:g} K each)")
+    _check(int(n_e) == int(st.n_x) and below <= TOL_G_SKETCH_K and above <= TOL_G_SKETCH_K,
+           "mesh config G: the sketch ladder is outside its rank limit of the exact ladder")
+
+    # the transform, bitwise, against the unsharded transform through the same ladder
+    one = sdt.GlobalQuantileMapper(device=dev)
+    one.state_ = st
+    want = one.transform(x32).cpu().numpy().T
+    _check(same_bits(got, want), "mesh config G: the 4-shard transform differs from the unsharded one")
+
+    # K6 on the merged row, with the arguments the fit gives it
+    real, seen = OI.batched_interp, []
+
+    def record(xp, fp, q):
+        seen.append((xp, fp, q))
+        return real(xp, fp, q)
+
+    with mock.patch.object(OI, "batched_interp", record):
+        gd._model.fit(gd._pack(X)[0], gd._pack(Y)[0])
+    xp, fp, q = seen[0]
+    del seen
+    k_err = bitwise_err(I.batched_interp(xp, fp, q), I.batched_interp_plain(xp, fp, q), "K6 merged sketch row")
+    ms = cuda_ms(lambda: I.batched_interp(xp, fp, q), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: I.batched_interp_plain(xp, fp, q), iters=20, warmup=3)
+    n_bytes = 4 * (xp.numel() + fp.numel() + q.numel() + q.numel())
+    b_ms, b_by = bound(n_bytes, q.numel() * (np.ceil(np.log2(xp.shape[1])) + 15))
+    print(f"kernel batched_interp mesh config G merged sketch row (1 row, L={xp.shape[1]}, Q={q.shape[1]}): "
+          f"bitwise equal to plain (max |diff| {k_err}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); the exact ladder's row of {C * G_TIME} knots: "
+          + (f"{exact_row_ms:.4f} ms in this run" if exact_row_ms is not None else "not run in this call")
+          + f"; launches 2 a fit; card {card}")
+    print(f"mesh config G: GlobalDownscaler(GlobalQuantileMapper(sample_per_shard={G_SKETCH_M}), "
+          f"sharding=mesh4) fit + transform {C} cells x {G_TIME} days: wall {wall:.4f} s (fit "
+          f"{t_fit:.4f} s); transform bitwise equal to the unsharded transform through the same ladder; "
+          f"K6 launches: fit {fit_k6}, transform {tr_k6}; card {card}")
+    del x32
+
+    for cell_intercepts in (False, True):
+        label = f"mesh config G linear (cell_intercepts={cell_intercepts})"
+
+        def lin(**where):
+            return sdt.GlobalDownscaler(sdt.GlobalLinearRegressor(cell_intercepts=cell_intercepts), **where)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g4 = lin(sharding=mesh4).fit(X, Y)
+        p4 = np.asarray(g4.predict(X).values)
+        wall = time.perf_counter() - t0
+        g1 = lin(device=dev).fit(X, Y)
+        p1 = np.asarray(g1.predict(X).values)
+        s4, s1 = g4._model.state_, g1._model.state_
+        coef_rel = float((s4.coef.double() - s1.coef.double()).abs().max() / s1.coef.double().abs().max())
+        i4 = (s4.cell_intercept.gather(dev)[:C] if cell_intercepts else s4.intercept[None]).double().cpu().numpy()
+        i1 = (s1.cell_intercept if cell_intercepts else s1.intercept[None]).double().cpu().numpy()
+        _, icpt_max, _ = diff_stats(i4, i1)
+        _check(np.array_equal(np.isnan(p4), np.isnan(p1)), f"{label}: NaN in other places")
+        dmax = float(np.nanmax(np.abs(p4 - p1)))
+        lim_coef, lim_icpt, lim_out = TOL_G_LINEAR
+        print(f"{label}: sharding=mesh4 fit + predict {C} cells x {G_TIME} days: wall {wall:.4f} s; vs the "
+              f"unsharded card fit: coef relative diff {coef_rel:.3g}, intercepts max |diff| {icpt_max:.6g} "
+              f"K, outputs max |diff| {dmax:.6g} K (limits {lim_coef:g}, {lim_icpt:g} K, {lim_out:g} K); "
+              f"n_samples {int(s4.n_samples)} = {int(s1.n_samples)}; card {card}")
+        _check(coef_rel <= lim_coef and icpt_max <= lim_icpt and dmax <= lim_out
+               and int(s4.n_samples) == int(s1.n_samples),
+               f"{label}: outside the stated float32 limits of the unsharded fit")
+
+
+def mesh_config8(rng, card, dev, mesh4):
+    """Config 8 through ``mbcn_grid(..., sharding=cell_sharding(mesh4, 3))``:
+    bitwise equal to the unsharded card run, K9 launched on every shard."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.models import mbc as PM
+    from skdownscale_tpu_torch.parallel import cell_sharding
+
+    nan_cells = rng.random(M_CELLS) < NAN_CELL_SHARE
+    Y, XH, XF = mbcn_datasets(rng, M_LAT, M_LON, nan_cells)
+    sh = cell_sharding(mesh4, 3)
+    one = PM.mbcn_grid(Y, XH, XF, n_iterations=M_ROT, device=dev)  # warm: config 8 ran before
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    four = PM.mbcn_grid(Y, XH, XF, n_iterations=M_ROT, sharding=sh)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    for form in K9_FORMS:
+        _check(launches.get(form, 0) == MESH_SHARDS * K9_PER_CORRECT,
+               f"mesh config 8: {form} launched {launches.get(form, 0)} times, not {K9_PER_CORRECT} a "
+               f"shard x {MESH_SHARDS}")
+    for a, b in zip(one, four):
+        for v in a.data_vars:
+            _check(same_bits(a[v].values, b[v].values), f"mesh config 8: {v} differs from the unsharded run")
+    print(f"mesh config 8: mbcn_grid(..., sharding=cell_sharding(mesh4, 3)) {M_CELLS} cells, {M_D} "
+          f"variables x {M_T} days, {M_ROT} rotations: bitwise equal to the unsharded card run; wall "
+          f"{wall:.4f} s; launches {launches}; card {card}")
+
+
+def mesh_two_processes(card, dev, tmp, store):
+    """Two processes sharing the card through ``parallel.dryrun`` over gloo
+    (4 shards each on cuda:0) on the pipeline's store, against this
+    process's run of the same 8-shard mesh: the output bitwise, the ladder
+    equal."""
+    from skdownscale_tpu_torch.parallel import cell_mesh
+    from skdownscale_tpu_torch.parallel.dryrun import dry_run, run_job
+
+    t0 = time.perf_counter()
+    out, ladder, n1, n_cells, feed1 = dry_run(store, cell_mesh([dev] * 8), sample_per_shard=G_SKETCH_M,
+                                              quantiles=G_Q)
+    single, lad1 = out.gather()[:n_cells], ladder.cpu().numpy()
+    wall1 = time.perf_counter() - t0
+    del out
+    t0 = time.perf_counter()
+    multi, (lad2, n2), meta2 = run_job(2, store, os.path.join(tmp, "dry2"), device="cuda", shards=8,
+                                       sample_per_shard=G_SKETCH_M, quantiles=G_Q, timeout=300)
+    wall2 = time.perf_counter() - t0
+    _check([m["process_count"] for m in meta2] == [2, 2], "mesh two processes: not a job of two")
+    _check(same_bits(multi, single), "mesh two processes: the reassembled output differs from one process's")
+    _check(same_bits(lad2, lad1) and n1 == n2, "mesh two processes: the ladders differ")
+    ok = np.isfinite(single).all(axis=1)
+    _check(ok.mean() > 0.9 and np.isnan(single[~ok]).all(), "mesh two processes: NaN cells or valid cells wrong")
+    each = ", ".join(f"{m['wall_s']:.3f} (feed {m['feed_s']:.3f})" for m in meta2)
+    print(f"mesh two processes: parallel.dryrun, 2 processes x 4 shards of cuda:0 over gloo, "
+          f"{single.shape[0]} cells x {single.shape[1]} months from the pipeline's zarr store: output "
+          f"bitwise equal to this process's run of 8 shards, ladder ({G_Q} quantiles, n {n1}) equal; job "
+          f"wall {wall2:.3f} s (each process from the feed to the ladder: {each} s), this process's run "
+          f"{wall1:.3f} s (feed {feed1:.3f} s); card {card}")
+
+
+def multi_device_phase(rng, card, dev, tmp, store, exact_row_ms=None):
+    """The multi-device layer on the one card: ``cell_mesh()`` and a
+    4-shard mesh of cuda:0, then configs 2 (and the checkpoints), G and 8 on
+    the 4-shard mesh and the two-process job."""
+    from skdownscale_tpu_torch.parallel import cell_mesh
+
+    mesh = cell_mesh()
+    mesh4 = cell_mesh([dev] * MESH_SHARDS)
+    print(f"mesh: cell_mesh() = {mesh}; the 4-shard mesh = {mesh4} (repeated devices share one card, "
+          f"their shards run one after another)")
+    t0 = time.perf_counter()
+    X, Y, nan_cells = monthly_grid(rng)
+    mesh_config2(X, Y, nan_cells, card, dev, mesh4, tmp)
+    del X, Y
+    t1 = time.perf_counter()
+    mesh_configG(rng, card, dev, mesh4, exact_row_ms)
+    t2 = time.perf_counter()
+    mesh_config8(rng, card, dev, mesh4)
+    t3 = time.perf_counter()
+    mesh_two_processes(card, dev, tmp, store)
+    t4 = time.perf_counter()
+    print(f"mesh: phase walls: config 2 + checkpoints {t1 - t0:.1f} s, config G {t2 - t1:.1f} s, config 8 "
+          f"{t3 - t2:.1f} s, two processes {t4 - t3:.1f} s; card {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2833,6 +3239,13 @@ def main() -> int:
         if sys.argv[1:2] == ["--pipeline"]:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 pipeline_phase(np.random.default_rng(SEED), card, torch.device("cuda", 0), tmp)
+            print(card)
+            return 0
+        if sys.argv[1:2] == ["--multi-device"]:
+            rng = np.random.default_rng(SEED)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                store = pipeline_store(rng, tmp)[-1]
+                multi_device_phase(rng, card, torch.device("cuda", 0), tmp, store)
             print(card)
             return 0
         t0 = time.perf_counter()
@@ -2930,7 +3343,7 @@ def main() -> int:
         mark("config 6 arrm and auto")
         fallback_phase(rng, card, dev)
         mark("the per-cell fallback")
-        g_k6, _ = configG_phase(rng, card, dev)
+        g_k6, g_rows = configG_phase(rng, card, dev)
         launches["batched_interp"] += g_k6
         mark("config G")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2939,6 +3352,8 @@ def main() -> int:
             utilities_phase(rng, card, dev, obs, pred, tmp)
             del obs, pred
             mark("the utilities")
+            multi_device_phase(rng, card, dev, tmp, os.path.join(tmp, "in.zarr"), exact_row_ms=g_rows[0][1])
+            mark("the multi-device layer")
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

@@ -14,9 +14,12 @@ sklearn-style estimator takes its per-cell loop) and the single-cell API,
 ``GroupedRegressor``, multivariate MBCn (``MBCn``,
 ``models.mbc.mbcn_grid``) and the pooled models of ``global_models``
 (``GlobalLinearRegressor``, ``GlobalQuantileMapper``,
-``GlobalDownscaler``) on one device, the store -> device -> store pipeline
-(``parallel.pipeline``), checkpoints, metrics, disaggregation and
-profiling (``utils``) and the BCSD command line (``cli``), with
+``GlobalDownscaler``), the multi-device layer (``parallel``: cell meshes
+over devices and ``torch.distributed`` processes, the sharded runners, the
+pooled quantile sketch, multi-process feeding and time sharding), the
+store -> device -> store pipeline (``parallel.pipeline``), checkpoints,
+metrics, disaggregation and profiling (``utils``) and the BCSD command
+line (``cli``), with
 hand-written CUDA kernels for the segment count-sort, rank-map, sliding
 sorted window, batched table interpolation, the fused analog selection and
 statistics, and the row sort with positions and unsort (K9) (``kernels/``,
@@ -24,7 +27,8 @@ sources in ``csrc/``).
 
 The single-cell API runs on the card unless the caller sets
 ``SingleCellEstimator.single_cell_device = torch.device("cpu")``
-(``models/base.py``); ``PointWiseDownscaler`` takes its ``device``.
+(``models/base.py``); ``PointWiseDownscaler`` takes its ``device``, or a
+cell mesh (``sharding=``).
 
 Float32 matrix products run in full float32: the JAX package ran them at
 ``Precision.HIGHEST`` (``bcsd.py:209-214``, the kNN distances of

@@ -1,17 +1,20 @@
 """Grid front-end for the global (pooled) models.
 
-Port of ``skdownscale_tpu/global_models/downscaler.py`` on one device:
-accepts ``xlite``/xarray DataArrays (time + spatial dims) or bare (cells,
-time) arrays, moves the grid to ``device``, flattens space to the leading
-cell axis there and reshapes outputs back to the grid.  NaN cells (oceans) pass
-through: they carry zero weight in pooled fits and map to NaN in outputs.
+Port of ``skdownscale_tpu/global_models/downscaler.py``: accepts
+``xlite``/xarray DataArrays (time + spatial dims) or bare (cells, time)
+arrays, flattens space to the leading cell axis, moves the grid to
+``device`` or shards it over a cell mesh (``parallel.mesh.shard_cells``:
+NaN pad cells, contiguous blocks), and reshapes outputs back to the grid.
+NaN cells (oceans) pass through: they carry zero weight in pooled fits and
+map to NaN in outputs.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..parallel.mesh import MULTI_DEVICE_ITEM
+from ..parallel.mesh import ShardedCells, as_mesh, shard_cells, to_shard
 from ..utils.device import as_tensor
 from ..xlite import is_dataarray as _is_dataarray
 
@@ -31,42 +34,66 @@ class GlobalDownscaler:
         Where the grid is fit and mapped: the card by default (float32),
         ``"cpu"`` for the input's dtype.  Without a card a CUDA device
         raises.
-    sharding : not supported yet; passing one raises.
+    sharding : CellMesh | MeshSharding | None
+        Cell mesh (in place of ``device``): input grids are padded and
+        cell-sharded over it, and a model with a ``mesh`` (the quantile
+        mapper) fits by the sketch on it.
     """
 
     def __init__(self, model, dim: str = "time", device="cuda", sharding=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                f"GlobalDownscaler(sharding=...) waits for the multi-device layer "
-                f"({MULTI_DEVICE_ITEM}); pass device= to run on one device"
-            )
         self._model = model
         self._dim = dim
         self.device = device
+        self._mesh = None if sharding is None else as_mesh(sharding)
+        if self._mesh is not None and hasattr(model, "mesh"):
+            model.mesh = self._mesh
 
     # -- packing -------------------------------------------------------
+    def _shard_time_first(self, flat):
+        """``shard_cells`` of the cells of a (T, C) grid: each shard's block
+        of columns moves to its device time-first, as it is laid out, and is
+        transposed there (a host transpose of a continental grid is a slow
+        strided copy); NaN pad cells up to a multiple of the mesh size."""
+        mesh = self._mesh
+        T, C = flat.shape
+        rows = -(-C // mesh.size)
+        shards = []
+        for k, dev in zip(mesh.local_shards, mesh.devices):
+            blk = to_shard(flat[:, k * rows:(k + 1) * rows], dev).T
+            pad = blk.new_full((rows - blk.shape[0], T), float("nan"))
+            shards.append(torch.cat([blk, pad]) if len(pad) else blk.contiguous())
+        return ShardedCells(mesh, shards, (rows * mesh.size, T))
+
     def _pack(self, X):
-        """-> (cells, time[, f]) tensor on the device + unpack metadata.  A
-        DataArray moves to the device time-first, as it is laid out, and is
-        transposed there (a host transpose of a continental grid is a
-        slow strided copy)."""
+        """-> (cells, time[, f]) tensor on the device, or ShardedCells on the
+        mesh, + unpack metadata.  A DataArray moves to the device (each
+        shard's to its device) time-first, as it is laid out, and is
+        transposed there (a host transpose of a continental grid is a slow
+        strided copy)."""
         who = type(self).__name__
         if _is_dataarray(X):
             dims = list(X.dims)
             if self._dim not in dims:
                 raise ValueError(f"dimension {self._dim!r} not in {dims}")
             arr = np.moveaxis(np.asarray(X.data), dims.index(self._dim), 0)  # (T, spatial...)
-            grid = as_tensor(arr.reshape(arr.shape[0], -1), self.device, who).T.contiguous()
-            return grid, (arr.shape[1:], [d for d in dims if d != self._dim], X)
+            meta = (arr.shape[1:], [d for d in dims if d != self._dim], X)
+            flat = arr.reshape(arr.shape[0], -1)
+            if self._mesh is not None:
+                return self._shard_time_first(flat), meta
+            return as_tensor(flat, self.device, who).T.contiguous(), meta
         arr = np.asarray(X)
         if arr.ndim == 1:
             arr = arr[None, :]
         # bare arrays are already (cells, time[, features])
-        return as_tensor(arr, self.device, who), ((arr.shape[0],), None, None)
+        meta = ((arr.shape[0],), None, None)
+        if self._mesh is not None:
+            return shard_cells(arr, self._mesh)[0], meta
+        return as_tensor(arr, self.device, who), meta
 
     def _unpack(self, out, meta):
-        out = out.cpu().numpy()
         spatial, other_dims, template = meta
+        out = out.gather() if isinstance(out, ShardedCells) else out.cpu().numpy()
+        out = out[:int(np.prod(spatial))]  # drop the mesh's pad cells
         grid = out.reshape(*spatial, out.shape[-1])
         if template is None:
             return grid
@@ -82,7 +109,7 @@ class GlobalDownscaler:
         # regression models want a trailing feature axis; a (cells, time)
         # grid means one feature
         if hasattr(self._model, "predict") and dx.ndim == 2:
-            return dx[..., None]
+            return dx.map(lambda s: s[..., None]) if isinstance(dx, ShardedCells) else dx[..., None]
         return dx
 
     def fit(self, X, y, **kwargs):
@@ -107,4 +134,5 @@ class GlobalDownscaler:
         return self._apply("inverse_transform", X, **kwargs)
 
     def __repr__(self):
-        return f"GlobalDownscaler(model={self._model!r}, dim={self._dim!r}, device={self.device!r})"
+        where = f"device={self.device!r}" if self._mesh is None else f"sharding={self._mesh!r}"
+        return f"GlobalDownscaler(model={self._model!r}, dim={self._dim!r}, {where})"

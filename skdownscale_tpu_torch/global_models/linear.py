@@ -3,7 +3,14 @@
 Port of ``skdownscale_tpu/global_models/linear.py``: one weighted
 least-squares problem pooled over every valid (cell, time) sample of a
 grid, the reference roadmap's never-built ``global_models`` component
-(``docs/roadmap.rst:59-65``), on one device.
+(``docs/roadmap.rst:59-65``).
+
+On cell-sharded input (``parallel.mesh.shard_cells``, a ``ShardedCells``)
+each shard computes its partial sufficient statistics and one
+``all_reduce`` over the mesh sums them, the partitioned ``jnp.sum`` XLA
+makes of the JAX version; the small (f, f) solve is replicated, and
+per-cell intercepts stay on their shards.  The sums then differ from the
+one-device fit only in the order of addition.
 
 Two intercept modes:
 
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.regression import _psolve
+from ..parallel.mesh import ShardedCells, all_reduce, map_shards
 from ..utils.device import as_tensor
 
 __all__ = [
@@ -57,40 +65,76 @@ def _gram(Xc, yc):
     return G, b
 
 
-def global_linear_fit(X, y, *, cell_intercepts: bool = False) -> GlobalLinearState:
-    """Pooled WLS fit.  ``X``: (C, T, f); ``y``: (C, T)."""
+def _masked(X, y):
+    """(w, X and y zeroed where w is 0) of one block of cells."""
     w = _valid_mask(X, y)  # (C, T)
-    yz = torch.where(w > 0, y, 0.0)
-    Xz = torch.where(w[..., None] > 0, X, 0.0)
-    # the count from integers: exact in float32 past 2**24 samples
-    n = (w > 0).sum().to(X.dtype)
-    n_safe = torch.where(n > 0, n, 1.0)
+    return w, torch.where(w[..., None] > 0, X, 0.0), torch.where(w > 0, y, 0.0)
 
-    if cell_intercepts:
-        wc = w.sum(dim=1)  # (C,)
-        wc_safe = torch.where(wc > 0, wc, 1.0)
-        xm = (Xz * w[..., None]).sum(dim=1) / wc_safe[:, None]  # (C, f)
-        ym = (yz * w).sum(dim=1) / wc_safe  # (C,)
-        # centre the zeroed copies: invalid samples stay finite (0*w) instead
-        # of NaN-poisoning the contraction
-        Xc = (Xz - xm[:, None, :]) * w[..., None]
-        yc = (yz - ym[:, None]) * w
-        coef = _psolve(*_gram(Xc, yc))
-        cell_intercept = torch.where(wc > 0, ym - xm @ coef, float("nan"))
-        intercept = torch.zeros((), dtype=X.dtype, device=X.device)
+
+def global_linear_fit(X, y, *, cell_intercepts: bool = False) -> GlobalLinearState:
+    """Pooled WLS fit.  ``X``: (C, T, f); ``y``: (C, T); both tensors, or
+    both ``ShardedCells`` of one mesh.  Every sum is taken a block of cells
+    at a time (one block, or one a shard) and the blocks' partial sums are
+    added by ``all_reduce``; the (f, f) solve is replicated."""
+    if isinstance(X, ShardedCells):
+        mesh, dev = X.mesh, X.mesh.devices[0]
+        parts = map_shards(_masked, X, y)
+
+        def total(ts):
+            return all_reduce(ts, mesh)
+
+        def cells(ts):
+            return ShardedCells(mesh, ts, X.shape[:1])
     else:
-        xm = (Xz * w[..., None]).sum(dim=(0, 1)) / n_safe  # (f,)
-        ym = (yz * w).sum() / n_safe
-        Xc = (Xz - xm) * w[..., None]
-        yc = (yz - ym) * w
-        coef = _psolve(*_gram(Xc, yc))
+        dev = X.device
+        parts = [_masked(X, y)]
+
+        def total(ts):
+            return ts[0]
+
+        def cells(ts):
+            return ts[0]
+
+    # the count from integers: exact in float32 past 2**24 samples
+    n = total([(w > 0).sum() for w, _, _ in parts]).to(X.dtype)
+    if cell_intercepts:
+        def centred(w, Xz, yz):
+            wc = w.sum(dim=1)  # (C,)
+            wc_safe = torch.where(wc > 0, wc, 1.0)
+            xm = (Xz * w[..., None]).sum(dim=1) / wc_safe[:, None]  # (C, f)
+            ym = (yz * w).sum(dim=1) / wc_safe  # (C,)
+            # centre the zeroed copies: invalid samples stay finite (0*w)
+            # instead of NaN-poisoning the contraction
+            return wc, xm, ym, (Xz - xm[:, None, :]) * w[..., None], (yz - ym[:, None]) * w
+
+        blocks = [centred(*p) for p in parts]
+        grams = [_gram(Xc, yc) for *_, Xc, yc in blocks]
+        coef = _psolve(total([G for G, _ in grams]), total([b for _, b in grams]))
+        cell_intercept = cells([torch.where(wc > 0, ym - xm @ coef.to(wc.device), float("nan"))
+                                for wc, xm, ym, _, _ in blocks])
+        intercept = torch.zeros((), dtype=X.dtype, device=dev)
+    else:
+        n_safe = torch.where(n > 0, n, 1.0)
+        xm = total([(Xz * w[..., None]).sum(dim=(0, 1)) for w, Xz, _ in parts]) / n_safe  # (f,)
+        ym = total([(yz * w).sum() for w, _, yz in parts]) / n_safe
+        grams = [_gram((Xz - xm.to(w.device)) * w[..., None], (yz - ym.to(w.device)) * w)
+                 for w, Xz, yz in parts]
+        coef = _psolve(total([G for G, _ in grams]), total([b for _, b in grams]))
         intercept = ym - xm @ coef
-        cell_intercept = torch.full(X.shape[:1], float("nan"), dtype=X.dtype, device=X.device)
+        cell_intercept = cells([torch.full(w.shape[:1], float("nan"), dtype=X.dtype, device=w.device)
+                                for w, _, _ in parts])
     return GlobalLinearState(coef, intercept, cell_intercept, n)
 
 
 def global_linear_predict(state: GlobalLinearState, X, *, cell_intercepts: bool = False):
-    """Predict (C, T) from (C, T, f)."""
+    """Predict (C, T) from (C, T, f); cell-sharded in, cell-sharded out
+    (the shared ``coef`` goes to each shard's device, no collective)."""
+    if isinstance(X, ShardedCells):
+        def shard(Xs, *icpt):
+            base = torch.einsum("ctf,f->ct", Xs, state.coef.to(Xs.device))
+            return base + (icpt[0][:, None] if cell_intercepts else state.intercept.to(Xs.device))
+
+        return X.map(shard, *([state.cell_intercept] if cell_intercepts else []))
     base = torch.einsum("ctf,f->ct", X, state.coef)
     if cell_intercepts:
         return base + state.cell_intercept[:, None]
@@ -112,7 +156,9 @@ class GlobalLinearRegressor:
 
     ``fit(X, y)`` takes ``X`` (cells, time, features) and ``y`` (cells,
     time); 2-D ``X`` is one cell.  ``predict`` returns a (cells, time)
-    tensor on the inputs' device.
+    tensor on the inputs' device.  Cell-sharded inputs
+    (``parallel.mesh.shard_cells``) fit over the mesh and predict a
+    ``ShardedCells``.
     """
 
     _fit_attributes = ["state_", "n_features_in_"]
@@ -122,6 +168,8 @@ class GlobalLinearRegressor:
         self.device = device
 
     def _coerce(self, X, y=None):
+        if isinstance(X, ShardedCells):
+            return X if y is None else (X, y)
         X = as_tensor(X, self.device, type(self).__name__)
         if X.ndim == 2:  # (T, f) single cell
             X = X[None]
@@ -150,8 +198,10 @@ class GlobalLinearRegressor:
         return self
 
     def score(self, X, y):
-        pred = self.predict(X).cpu().numpy()
-        yt = self._coerce(X, y)[1].cpu().numpy().reshape(pred.shape)
+        pred = self.predict(X)
+        yt = self._coerce(X, y)[1]
+        pred, yt = ((a.gather() if isinstance(a, ShardedCells) else a.cpu().numpy()) for a in (pred, yt))
+        yt = yt.reshape(pred.shape)
         v = np.isfinite(yt) & np.isfinite(pred)
         ss_res = float(((yt[v] - pred[v]) ** 2).sum())
         ss_tot = float(((yt[v] - yt[v].mean()) ** 2).sum())

@@ -1,18 +1,31 @@
 """Pooled ("global") quantile mapping over all cells.
 
-Port of ``skdownscale_tpu/global_models/quantile.py`` on one device: one
-quantile correction estimated from every valid sample of a (cells, time)
-grid and applied to every cell, for short per-cell records or a spatially
-coherent correction.
+Port of ``skdownscale_tpu/global_models/quantile.py``: one quantile
+correction estimated from every valid sample of a (cells, time) grid and
+applied to every cell, for short per-cell records or a spatially coherent
+correction.
 
-The fit sorts the flattened valid samples once and evaluates the Cunnane
-plotting-position ladder (``Q`` positions) on them with one K6 call (one
-row of ``cells x time`` knots, the ``Q`` positions as queries).  Transforms
-map each cell row through the one monotone table ``x_ladder -> y_ladder``,
-passed to K6 once as a table shared by every row.  The JAX package's
-sharded path (a per-device sketch merged by ``all_gather``) waits for the
-multi-device layer (ROADMAP Queue 1 A, "The multi-device layer"); a mesh
-of more than one device raises.
+Without a mesh (or on a mesh of one shard) the fit sorts the flattened
+valid samples once and evaluates the Cunnane plotting-position ladder
+(``Q`` positions) on them with one K6 call (one row of ``cells x time``
+knots, the ``Q`` positions as queries).  On a cell mesh it takes the JAX
+package's stratified order-statistic sketch instead:
+
+1. each shard sorts its cells' samples once and takes ``m`` equally spaced
+   order statistics with weight ``n_local / m`` (an empty shard gives
+   ``+inf`` samples of weight 0);
+2. one ``all_gather`` moves the (shards, m) sketch, kilobytes and not the
+   grid, to the first device in mesh order, and an ``all_reduce`` counts
+   the samples;
+3. the weighted merge (a stable payload sort, midpoint ranks) evaluates the
+   ladder with one K6 call on the merged row of ``shards x m`` knots.
+
+The sketch is deterministic, with a rank error of at most ``n_local/(2m)``
+a shard.  It also takes grids whose exact ladder would need a K6 row above
+its ``2**31 - 1`` knots.  Transforms map each cell row through the one
+monotone table ``x_ladder -> y_ladder``, passed to K6 once as a table
+shared by every row; on cell-sharded input each shard maps its rows on its
+device, with no collective.
 """
 
 from __future__ import annotations
@@ -23,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.interp import interp_rows
-from ..parallel.mesh import MULTI_DEVICE_ITEM
+from ..parallel.mesh import ShardedCells, all_gather, all_reduce, as_mesh, map_shards, shard_cells
 from ..utils.device import as_tensor
 
 __all__ = [
@@ -74,12 +87,22 @@ def _ladder_from_ranks(vals, mid, finite, W, pp):
 
 def _ladder_from_weighted(vals, w, pp):
     """The ladder from weighted samples: payload-sort by value,
-    midpoint-rank plotting positions, monotone interp onto ``pp``."""
-    vals, order = torch.sort(vals)
+    midpoint-rank plotting positions, monotone interp onto ``pp``.  Tied
+    values keep their input order (the sort is stable), as ``lax.sort``
+    orders them on the CPU: two shards' samples of one value carry
+    different weights, and the tie's order moves its first and last
+    midpoint ranks.
+
+    The midpoint ranks are summed on the host in float64, in order: a
+    CUDA cumsum (a single-pass scan) may associate its additions otherwise
+    from run to run, and every process of a job must compute the same
+    ladder.  The merged row is a sketch, kilobytes."""
+    vals, order = torch.sort(vals, stable=True)
     w = w[order]
-    mid = (torch.cumsum(w, dim=0) - 0.5 * w).to(torch.float64)
+    wh = w.to("cpu", torch.float64)
+    mid = (torch.cumsum(wh, dim=0) - 0.5 * wh).to(vals.device)
     finite = torch.isfinite(vals) & (w > 0)
-    return _ladder_from_ranks(vals, mid, finite, w.sum().to(torch.float64), pp)
+    return _ladder_from_ranks(vals, mid, finite, wh.sum().to(vals.device), pp)
 
 
 def _exact_ladder(vals, mask, pp):
@@ -92,8 +115,8 @@ def _exact_ladder(vals, mask, pp):
         if N > _K6_MAX_KNOTS:
             raise ValueError(
                 f"the exact pooled ladder of {N} samples needs one K6 row of {N} knots, "
-                f"above K6's {_K6_MAX_KNOTS}; the sketch path for such grids waits for "
-                f"the multi-device layer ({MULTI_DEVICE_ITEM})"
+                f"above K6's {_K6_MAX_KNOTS}; pass a cell mesh (mesh=parallel.cell_mesh(...), "
+                f"a mesh of repeated devices shares one card) to fit it by the sketch"
             )
         free, _ = torch.cuda.mem_get_info(vals.device)
         free += torch.cuda.memory_reserved(vals.device) - torch.cuda.memory_allocated(vals.device)
@@ -115,23 +138,52 @@ def _exact_ladder(vals, mask, pp):
     return _ladder_from_ranks(s, mid, torch.isfinite(s), n.to(torch.float64), pp), n
 
 
-def _mesh_devices(mesh) -> int:
-    """Devices of a mesh: a ``torch.distributed`` DeviceMesh or a sequence."""
-    size = getattr(mesh, "size", None)
-    return int(size()) if callable(size) else len(mesh)
+def _sketch_ladder(vals: ShardedCells, pp, m: int):
+    """Per-shard sort + ``m``-point stratified sketch + an ``all_gather``
+    merge (``skdownscale_tpu/global_models/quantile.py:96-113``).  The
+    sample index ``(j + 0.5) * cnt / m`` is computed in the input's dtype,
+    as the JAX version does."""
+    mesh = vals.mesh
+
+    def sketch(v):
+        dtype = v.dtype
+        mask = torch.isfinite(v)
+        n_local = mask.sum()
+        cnt = n_local.to(dtype)
+        s = torch.sort(torch.where(mask, v, float("inf")).reshape(-1)).values
+        j = torch.arange(m, dtype=dtype, device=v.device)
+        r = torch.minimum(torch.clamp((j + 0.5) * cnt / m, min=0), torch.clamp(cnt - 1, min=0))
+        empty = cnt == 0
+        sample = torch.where(empty, float("inf"), s[r.to(torch.int64)])
+        w = torch.where(empty, 0.0, (cnt / m).expand(m))
+        return sample, w, n_local
+
+    parts = map_shards(sketch, vals)
+    all_s = all_gather([p[0] for p in parts], mesh).reshape(-1)
+    all_w = all_gather([p[1] for p in parts], mesh).reshape(-1)
+    n = all_reduce([p[2] for p in parts], mesh)
+    return _ladder_from_weighted(all_s, all_w, pp.to(all_s.device)), n
 
 
 def pooled_quantile_table(vals, pp, mesh=None, *, sample_per_shard: int = 8192):
     """Pooled quantile ladder of the finite entries of ``vals`` (C, T):
-    (ladder (Q,), n_valid ()).  ``mesh`` of one device (or None) is the
-    exact one-device fit; more devices raise (``sample_per_shard`` is the
-    sketch size of that path)."""
-    if mesh is not None and _mesh_devices(mesh) > 1:
-        raise NotImplementedError(
-            f"the sharded pooled quantile sketch waits for the multi-device layer "
-            f"({MULTI_DEVICE_ITEM}); pass mesh=None to fit on one device"
-        )
-    return _exact_ladder(vals, torch.isfinite(vals), pp)
+    (ladder (Q,), n_valid ()).
+
+    ``mesh=None``, or a mesh of one shard: exact (one sort; a
+    ``ShardedCells`` input is gathered to its first device).  On a cell
+    mesh (``CellMesh`` or ``MeshSharding``) of several shards: the sketch
+    above, exact to ``n_local / (2 * sample_per_shard)`` in rank, with only
+    a kilobyte ``all_gather`` between devices; a tensor input is sharded
+    over the mesh first.
+    """
+    mesh = None if mesh is None else as_mesh(mesh)
+    if mesh is None or mesh.size == 1:
+        if isinstance(vals, ShardedCells):
+            vals = vals.gather(vals.mesh.devices[0])
+        return _exact_ladder(vals, torch.isfinite(vals), pp)
+    if not isinstance(vals, ShardedCells):
+        vals, _ = shard_cells(vals, mesh)
+    return _sketch_ladder(vals, pp, sample_per_shard)
 
 
 class GlobalQuantileMapper:
@@ -143,18 +195,18 @@ class GlobalQuantileMapper:
     n_quantiles : int | None
         Ladder size (default: min(2048, pooled sample count)).
     sample_per_shard : int
-        Sketch size per device on the sharded path.
-    mesh : None
-        A mesh of more than one device raises (ROADMAP Queue 1 A, "The
-        multi-device layer").
+        Sketch size per shard on the sharded path.
+    mesh : CellMesh | MeshSharding | None
+        Cell mesh for the distributed (sketch) fit; None = exact fit.
     device : str or torch.device
         Where numpy inputs go: the card by default (float32), ``"cpu"`` for
-        the input's dtype.  Tensors stay on their own device.  Without a
-        card a CUDA device raises.
+        the input's dtype.  Tensors and ``ShardedCells`` stay where they
+        are.  Without a card a CUDA device raises.
 
     ``transform`` maps X -> observed space (x_ladder -> y_ladder);
     ``inverse_transform`` maps back.  Tails clamp to the ladder ends, the
-    convention of ``np.interp``.  Both return tensors on the inputs' device.
+    convention of ``np.interp``.  Both return tensors on the inputs'
+    device, or a ``ShardedCells`` for a ``ShardedCells``.
     """
 
     _fit_attributes = ["state_"]
@@ -167,27 +219,35 @@ class GlobalQuantileMapper:
         self.device = device
 
     def _grid(self, a):
+        if isinstance(a, ShardedCells):
+            return a
         a = as_tensor(a, self.device, type(self).__name__)
         return a[None] if a.ndim == 1 else a
 
     def fit(self, X, y):
         X = self._grid(X)
-        y = self._grid(y).to(X.device)
+        y = self._grid(y)
+        if not isinstance(X, ShardedCells):
+            y = y.to(X.device)
         dtype = torch.float64 if X.dtype == torch.float64 else torch.float32
         nq = self.n_quantiles
         if nq is None:
-            nq = int(min(2048, X.numel(), y.numel()))
-        pp = ladder_positions(nq, dtype, X.device)
-        x_ladder, n_x = pooled_quantile_table(X.to(dtype), pp, self.mesh,
+            nq = int(min(2048, np.prod(X.shape), np.prod(y.shape)))
+        dev = X.mesh.devices[0] if isinstance(X, ShardedCells) else X.device
+        pp = ladder_positions(nq, dtype, dev)
+        x_ladder, n_x = pooled_quantile_table(_as(X, dtype), pp, self.mesh,
                                               sample_per_shard=self.sample_per_shard)
-        y_ladder, n_y = pooled_quantile_table(y.to(dtype), pp, self.mesh,
+        y_ladder, n_y = pooled_quantile_table(_as(y, dtype), pp, self.mesh,
                                               sample_per_shard=self.sample_per_shard)
         self.state_ = GlobalQuantileState(pp, x_ladder, y_ladder, n_x, n_y)
         return self
 
     def _map(self, V, src, dst):
         # each cell row against the one shared ladder: K6 takes the table once
-        V = self._grid(V).to(src.dtype)
+        V = self._grid(V)
+        if isinstance(V, ShardedCells):
+            return V.map(lambda v: self._map(v, src.to(v.device), dst.to(v.device)))
+        V = V.to(src.dtype)
         out = interp_rows(src[None, :], dst[None, :], V)
         return torch.where(torch.isfinite(V), out, float("nan"))
 
@@ -211,3 +271,8 @@ class GlobalQuantileMapper:
         for k, v in params.items():
             setattr(self, k, v)
         return self
+
+
+def _as(a, dtype):
+    """A tensor or each shard of a ``ShardedCells`` in ``dtype``."""
+    return a.map(lambda v: v.to(dtype)) if isinstance(a, ShardedCells) else a.to(dtype)

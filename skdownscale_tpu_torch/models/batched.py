@@ -18,6 +18,8 @@ object loop.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -41,6 +43,10 @@ __all__ = [
     "batched_transform",
     "batched_attrs",
     "GardState",
+    "pass_shard",
+    "cat_cells",
+    "split_cells",
+    "tree_to",
 ]
 
 
@@ -71,6 +77,85 @@ def _lookup(model) -> _Impl | None:
 def supports_batched(model) -> bool:
     impl = _lookup(model)
     return impl is not None and (impl.accepts is None or impl.accepts(model))
+
+
+# The device pass that a batched call's cells belong to when they are one
+# shard of it: (the shard's first cell in the pass, cells in the pass).  A
+# sharded runner sets it (pass_shard); the streaming choice and GARD's
+# sample draw read it, so the cells of a shard behave as they do in the
+# whole pass.
+_PASS: contextvars.ContextVar = contextvars.ContextVar("pass_shard", default=None)
+
+
+@contextlib.contextmanager
+def pass_shard(offset: int, n_pass: int):
+    """Batched calls inside run one shard of a pass of ``n_pass`` cells,
+    the shard starting at cell ``offset`` of the pass."""
+    token = _PASS.set((offset, n_pass))
+    try:
+        yield
+    finally:
+        _PASS.reset(token)
+
+
+def _pass_of(n_cells: int) -> tuple[int, int]:
+    """(offset, cells of the pass) of a call on ``n_cells`` cells."""
+    return _PASS.get() or (0, n_cells)
+
+
+def _map_tree(fn, node, shared=False):
+    """``fn(tensor, shared)`` on each tensor of a state tree; ``shared``
+    marks the leaves of a NamedTuple's ``shared_fields`` (no cell axis)."""
+    if isinstance(node, torch.Tensor):
+        return fn(node, shared)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        names = getattr(type(node), "shared_fields", ())
+        return type(node)(*(_map_tree(fn, v, shared or f in names) for f, v in zip(node._fields, node)))
+    if isinstance(node, (tuple, list)):
+        return type(node)(_map_tree(fn, v, shared) for v in node)
+    if isinstance(node, dict):
+        return {k: _map_tree(fn, v, shared) for k, v in node.items()}
+    return node
+
+
+def cat_cells(states):
+    """One state, on the host, from the states of consecutive cell blocks:
+    every tensor concatenated on its leading (cell) axis, except the
+    NamedTuple fields a state class lists in ``shared_fields``, taken from
+    the first block."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([s.cpu() for s in states])
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        names = getattr(type(first), "shared_fields", ())
+        return type(first)(*(tree_to(v, "cpu") if f in names else cat_cells([s[i] for s in states])
+                             for i, (f, v) in enumerate(zip(first._fields, first))))
+    if isinstance(first, (tuple, list)):
+        return type(first)(cat_cells(list(z)) for z in zip(*states))
+    if isinstance(first, dict):
+        return {k: cat_cells([s[k] for s in states]) for k in first}
+    return first
+
+
+def split_cells(state, sizes):
+    """The inverse of :func:`cat_cells`: ``state`` split into blocks of
+    ``sizes`` cells (views of it), the shared fields in every block."""
+    n = sum(sizes)
+
+    def check(t, shared):
+        if not shared and (t.dim() == 0 or t.shape[0] != n):
+            raise ValueError(f"a state leaf of shape {tuple(t.shape)} has no leading axis of {n} cells")
+        return t
+
+    _map_tree(check, state)
+    bounds = np.cumsum([0, *sizes])
+    return [_map_tree(lambda t, shared, lo=lo, hi=hi: t if shared else t[lo:hi], state)
+            for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def tree_to(state, device):
+    """A state tree with every tensor on ``device``."""
+    return _map_tree(lambda t, shared: t.to(device), state)
 
 
 def batched_fit(model, index_fit, X, y):
@@ -273,7 +358,7 @@ GROUP_CHUNK = {"daily": 8, "monthly": 3}
 
 def _bcsd_fit(model, index_fit, X, y):
     fg = model._fit_groups(index_fit)
-    if model._timestep_kind == "daily" or X.shape[0] >= STREAMING_CELL_THRESHOLD:
+    if model._timestep_kind == "daily" or _pass_of(X.shape[0])[1] >= STREAMING_CELL_THRESHOLD:
         return _bcsd.bcsd_fit_lazy(_single(X), y, fg, with_x_climo=model._with_x_climo)
     p = model._qm_params()
     return _bcsd.bcsd_fit(
@@ -409,8 +494,9 @@ def _pure_analog_predict(model, state, index_fit, X, index):
     C, m = X.shape[0], X.shape[1]
     if kind == "sample_analogs":
         # a fresh generator per call, as the JAX entry: every chunk draws
-        # the same leading numbers
-        rand = np.random.default_rng(model.random_state).integers(0, k, (C, m))
+        # the same leading numbers, and a shard its rows of its pass's draw
+        off, n = _pass_of(C)
+        rand = np.random.default_rng(model.random_state).integers(0, k, (n, m))[off:off + C]
     else:
         rand = np.zeros((C, m))
     rand = torch.as_tensor(rand.astype(np.int32), device=X.device)

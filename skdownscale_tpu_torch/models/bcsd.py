@@ -36,6 +36,7 @@ from ..kernels.slide_sort import slide_sorted_windows
 from ..ops.rolling import (
     rolling_mean_grouped_flat,
     rolling_mean_grouped_matmul,
+    rows_matmul,
     use_rolling_matmul,
 )
 from ..utils.timeindex import PaddedGroups, TimeIndex, padded_doy_groups
@@ -172,6 +173,8 @@ class BcsdState(NamedTuple):
     pp: torch.Tensor  # (G*L,) plotting positions (shared across cells)
     vals: torch.Tensor  # (..., G*L) sorted per-group CDF values, flat
     aux: torch.Tensor  # (..., 4*G): [trend_slope, trend_intercept, y_climo, x_climo]
+
+    shared_fields = ("pp",)  # no cell axis (models/batched.py: split_cells)
 
     def unpack(self, G: int, L: int):
         a = self.aux.reshape(*self.aux.shape[:-1], 4, G)
@@ -341,8 +344,8 @@ def bcsd_fit_lazy(x, y, fit_groups: PaddedGroups, *, with_x_climo: bool = True) 
     in full float32 or float64 (TF32 is off, as the JAX package ran them at
     ``Precision.HIGHEST``), with the raw target carried as state."""
     M = _membership_dev(fit_groups, y.shape[-1], y.device, y.dtype)
-    y_climo = y @ M
-    x_climo = x @ M if with_x_climo else torch.zeros_like(y_climo)
+    y_climo = rows_matmul(y, M)
+    x_climo = rows_matmul(x, M) if with_x_climo else torch.zeros_like(y_climo)
     aux = torch.stack([y_climo, x_climo], dim=-2)
     return BcsdLazyState(y, aux.reshape(*y_climo.shape[:-1], -1))
 

@@ -57,6 +57,8 @@ class GroupedCdf(NamedTuple):
     trend_slope: torch.Tensor  # (..., G)
     trend_intercept: torch.Tensor  # (..., G)
 
+    shared_fields = ("pp",)  # no cell axis (models/batched.py: split_cells)
+
 
 # ----------------------------------------------------------------------
 # host tables and their cached device copies

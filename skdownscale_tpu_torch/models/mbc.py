@@ -40,7 +40,7 @@ import torch
 
 from ..kernels.sort_rows import on_rows
 from ..ops.interp import interp_rows
-from ..parallel.mesh import MULTI_DEVICE_ITEM
+from ..parallel.mesh import CellMesh, gather_objects, on_device
 from .base import SingleCellEstimator, asarray_2d
 from .quantile import edcdfm_predict, qmr_fit
 
@@ -369,20 +369,25 @@ def mbcn_grid(
     device : where the cells are corrected: the card by default (float32,
         the kernels), ``"cpu"`` for the plain versions in the input's dtype.
         Without a card a CUDA device raises.
-    sharding : not supported yet; passing one raises.
+    sharding : ``parallel.cell_sharding(mesh, 3)`` (or a ``CellMesh``),
+        in place of ``device``: each pass's cells are padded by cycling
+        them (``np.resize``, not NaN: every shard holds real cells) to a
+        multiple of the mesh axis that splits the cell axis, split into
+        contiguous blocks in mesh order and corrected shard by shard, each
+        on its device (``skdownscale_tpu/models/mbc.py:366-381``).
 
     Returns ``(hist_out, fut_out)`` Datasets on the input grids; cells with
     any non-finite sample in any variable of any input stay NaN (the
     multivariate transform has no per-component masking).
     """
-    if sharding is not None:
-        raise NotImplementedError(
-            "mbcn_grid(sharding=...) waits for the port of the multi-device layer "
-            f"({MULTI_DEVICE_ITEM}); pass device= to run on one device"
-        )
     if group not in (None, "month"):
         raise ValueError(f"group must be None or 'month', got {group!r}")
-    dev = torch.device(device)
+    mesh, mult = None, 1
+    if sharding is not None:
+        mesh = sharding if isinstance(sharding, CellMesh) else sharding.mesh
+        axis0 = mesh.axis_names[0] if isinstance(sharding, CellMesh) else sharding.spec[0]
+        mult = int(mesh.shape[axis0]) if axis0 is not None else 1
+    dev = torch.device(device) if mesh is None else mesh.devices[0]
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "mbcn_grid runs on the card (device='cuda'), and torch.cuda.is_available() is "
@@ -410,15 +415,34 @@ def mbcn_grid(
     out_h = np.full_like(xh, np.nan)
     out_f = np.full_like(xf, np.nan)
     step = max(len(ids) if not cell_chunk_size else int(cell_chunk_size), 1)
+
+    def correct(blocks):
+        if group == "month":
+            return mbcn_correct_monthly(*blocks, *months, rots, **common)
+        return mbcn_correct(*blocks, rots, **common)
+
     for s in range(0, len(ids), step):
         sel = ids[s : s + step]
-        blocks = [to_device(a[sel], dev) for a in (yo, xh, xf)]
-        if group == "month":
-            oh, of = mbcn_correct_monthly(*blocks, *months, rots, **common)
-        else:
-            oh, of = mbcn_correct(*blocks, rots, **common)
-        out_h[sel] = oh.cpu().numpy()
-        out_f[sel] = of.cpu().numpy()
+        if mult == 1:
+            oh, of = correct([to_device(a[sel], dev) for a in (yo, xh, xf)])
+            out_h[sel] = oh.cpu().numpy()
+            out_f[sel] = of.cpu().numpy()
+            continue
+        # replicate cells (cycling) so every shard is populated; mesh shard
+        # k corrects block k * mult // size (one block a shard on a 1-D mesh)
+        fill = np.resize(np.arange(len(sel)), len(sel) + (-len(sel)) % mult)
+        rows = len(fill) // mult
+        local = {}
+        for k, shard_dev in zip(mesh.local_shards, mesh.devices):
+            b = k * mult // mesh.size
+            if b not in local:
+                with on_device(shard_dev):
+                    local[b] = correct([to_device(a[sel[fill[b * rows:(b + 1) * rows]]], shard_dev)
+                                        for a in (yo, xh, xf)])
+        local = {b: (oh.cpu().numpy(), of.cpu().numpy()) for b, (oh, of) in local.items()}
+        blocks = {b: o for part in gather_objects(local, mesh) for b, o in part.items()}
+        out_h[sel] = np.concatenate([blocks[b][0] for b in range(mult)])[: len(sel)]
+        out_f[sel] = np.concatenate([blocks[b][1] for b in range(mult)])[: len(sel)]
     return (
         unpack_dataset(out_h, da_h, sp_h, variables),
         unpack_dataset(out_f, da_f, sp_f, variables),

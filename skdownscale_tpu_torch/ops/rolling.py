@@ -309,12 +309,23 @@ def _rolling_matrix_t(groups, window: int, n: int, device, dtype):
     return torch.as_tensor(np.ascontiguousarray(R.T), dtype=dtype).to(device)
 
 
+def rows_matmul(x, m):
+    """``x @ m`` for rows ``x`` (..., n), each row's result the same bits
+    at every row count: a single row is multiplied as two, so BLAS takes
+    its matrix-matrix kernel and not its matrix-vector one, which sums in
+    another order (a cell sharded alone gets the bits it gets among
+    others)."""
+    if x.dim() == 2 and x.shape[0] == 1:
+        return (torch.cat([x, x]) @ m)[:1]
+    return x @ m
+
+
 def rolling_mean_grouped_matmul(x, groups, window: int):
     """The grouped rolling mean of ``x`` (..., n) as ``x @ R.T`` with the
     cached device copy of :func:`grouped_rolling_matrix`; None when
     ``groups`` is not a partition of ``[0, n)``."""
     Rt = _rolling_matrix_t(groups, window, x.shape[-1], x.device, x.dtype)
-    return None if Rt is None else x @ Rt
+    return None if Rt is None else rows_matmul(x, Rt)
 
 
 def use_rolling_matmul(x: torch.Tensor) -> bool:

@@ -3,9 +3,10 @@
 Port of ``skdownscale_tpu/parallel/zarr_io.py``.  :class:`ZarrGridSource`
 maps a range of the flat (C-order) cell axis of a (time, \\*spatial) zarr
 array onto the store's own chunk grid and reads only the covering row band
-(host numpy, through this package's :mod:`..utils.zarrlite`).  The
-per-process feed of a sharded mesh, ``feed_zarr_cells``, waits for the
-multi-device layer and raises.
+(host numpy, through this package's :mod:`..utils.zarrlite`).
+:func:`feed_zarr_cells` reads only this process's slice of the flat cell
+axis (:func:`.multihost.host_cell_slice`) and places it on the mesh
+(:func:`.multihost.feed_cells`).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils import zarrlite
-from .mesh import MULTI_DEVICE_ITEM
+from .multihost import feed_cells, host_cell_slice
 
 __all__ = ["ZarrGridSource", "feed_zarr_cells"]
 
@@ -90,9 +91,19 @@ class ZarrGridSource:
 
 
 def feed_zarr_cells(store, mesh, var: str | None = None):
-    """This process's cell slice of a zarr grid as a cell-sharded array:
-    waits for the multi-device layer."""
-    raise NotImplementedError(
-        f"feed_zarr_cells needs a device mesh, which waits for the port of the multi-device "
-        f"layer ({MULTI_DEVICE_ITEM}); read cell ranges with ZarrGridSource.read_cells"
-    )
+    """This process's cell slice of a zarr grid, placed on the mesh.
+
+    Returns ``(ShardedCells of the (C_padded, T) grid, n_cells,
+    time_index)``; rows past the true cell count (shard padding) are NaN.
+    A mesh of CUDA devices reads float32, any other float64.
+    """
+    src = ZarrGridSource(store, var)
+    sl = host_cell_slice(src.n_cells, mesh)
+    dtype = np.float32 if mesh.devices[0].type == "cuda" else np.float64
+    local = src.read_cells(sl.start, sl.stop, dtype=dtype)
+    want = sl.stop - sl.start
+    if local.shape[0] < want:  # last process: pad rows past n_cells
+        pad = np.full((want - local.shape[0], src.n_time), np.nan, dtype)
+        local = np.concatenate([local, pad], axis=0)
+    arr, n_cells = feed_cells(local, src.n_cells, mesh)
+    return arr, n_cells, src.index

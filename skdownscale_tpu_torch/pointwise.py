@@ -6,7 +6,11 @@ reference broadcasts a scikit-learn estimator over every grid cell with a
 Python loop; here the grid is packed once into ``(cells, time, features)``
 arrays, NaN (ocean/missing) cells are compacted out, and the model's batched
 implementation (:mod:`.models.batched`) fits and predicts all cells of a
-chunk at once on the runner's device.
+chunk at once on the runner's device, or, on a cell mesh
+(:mod:`.parallel.mesh`), splits each chunk over the mesh's shards, each
+fitting and predicting its cells on its device; fitted state stays with its
+shard (nothing is broadcast, unlike the reference's whole-model broadcast
+at ``core.py:331-335``) and outputs are gathered to the host once.
 
 Inputs duck-type xarray: real ``xarray.DataArray``/``Dataset`` objects, or
 :mod:`skdownscale_tpu_torch.xlite` containers; outputs are built with the
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from .models import batched as _b
+from .parallel.mesh import as_mesh, gather_objects, on_device, split_sizes
 from .utils import native as _native
 from .utils.prefetch import prefetched
 from .utils.timeindex import TimeIndex
@@ -92,22 +97,34 @@ class PointWiseDownscaler:
         the grid is moved in float32 and the hand-written kernels run; on
         the CPU the input dtype is kept (float64 stays float64).  Never
         chosen by probing.
+    sharding : CellMesh or MeshSharding, optional
+        Split each device pass's valid cells over a cell mesh
+        (``parallel.cell_mesh``, or a ``cell_sharding`` of one) in place of
+        ``device``: ``ceil(n / size)`` cells a shard in mesh order, the JAX
+        package's uneven split.  Each shard fits and predicts on its device
+        and holds its fitted state; outputs are gathered to the host once.
+        On a mesh of several processes each process runs its shards and
+        every process gets the whole output.  The per-cell loop ignores it.
     cell_chunk_size : int, optional
         Process (and hold state for) at most this many valid cells per
         device pass, bounding device memory.
     """
 
-    def __init__(self, model, dim: str = "time", device="cuda", cell_chunk_size=None):
+    def __init__(self, model, dim: str = "time", device="cuda", sharding=None, cell_chunk_size=None):
         if not hasattr(model, "fit"):
             raise TypeError(
                 f"Type {type(model)} does not have the fit method required by PointWiseDownscaler"
             )
         self._dim = dim
         self._model = model
-        self._state = None  # list of per-chunk batched states
+        # per-chunk batched states; on a mesh, per chunk the list of this
+        # process's shard states (None for an empty shard)
+        self._state = None
         self._state_plan = None  # list of valid-cell id chunks
         self._models = None  # per-cell object array (fallback path)
-        self.device = torch.device(device)
+        self.sharding = sharding
+        self._mesh = None if sharding is None else as_mesh(sharding)
+        self.device = torch.device(device) if self._mesh is None else self._mesh.devices[0]
         self.cell_chunk_size = cell_chunk_size
 
     # ------------------------------------------------------------------
@@ -147,18 +164,102 @@ class PointWiseDownscaler:
             "n_cells": C,
         }
 
-    def _device_dtype(self, dtype):
-        """float32 on CUDA (as the JAX package ran an accelerator with x64
-        off); the input dtype on the CPU."""
-        if self.device.type == "cuda":
-            return np.float32
-        return dtype
+    @staticmethod
+    def _host_to(packed, device):
+        """A packed host block on ``device``: float32 on CUDA (as the JAX
+        package ran an accelerator with x64 off), the input dtype on the
+        CPU."""
+        if device.type == "cuda":
+            packed = packed.astype(np.float32, copy=False)
+        return torch.from_numpy(packed).to(device)
 
-    def _to_device(self, flat, ids):
-        """(T, F, C) host grid -> (n_ids, T, F) tensor on the runner's device."""
-        packed = _native.pack_compact(flat, ids)
-        packed = packed.astype(self._device_dtype(packed.dtype), copy=False)
-        return torch.from_numpy(packed).to(self.device)
+    def _to_device(self, flat, ids, device=None):
+        """(T, F, C) host grid -> (n_ids, T, F) tensor on ``device`` (the
+        runner's by default)."""
+        return self._host_to(_native.pack_compact(flat, ids), device or self.device)
+
+    def _shards(self, ids):
+        """This process's shards of one device pass's valid-cell ids, as
+        (offset in the pass, ids, device): the whole pass on the runner's
+        device, or on a mesh ``ceil(n / size)`` cells a shard in mesh order
+        (the last shards short or empty)."""
+        if self._mesh is None:
+            return [(0, ids, self.device)]
+        sizes = split_sizes(len(ids), self._mesh.size)
+        per = sizes[0]
+        return [(k * per, ids[k * per:k * per + sizes[k]], dev)
+                for k, dev in zip(self._mesh.local_shards, self._mesh.devices)]
+
+    def _pack_shards(self, flat, ids):
+        """Each local shard of a pass on its device (None for an empty one).
+        This process's cells are compacted in one call and then split: the
+        native packer runs on one thread below 1,024 blocks of 64 cells, so
+        a shard at a time would run it single-threaded."""
+        shards = self._shards(ids)
+        lo = shards[0][0]
+        packed = _native.pack_compact(flat, ids[lo:lo + sum(len(sub) for _, sub, _ in shards)])
+        return [self._host_to(packed[off - lo:off - lo + len(sub)], dev) if len(sub) else None
+                for off, sub, dev in shards]
+
+    def _on_shards(self, ids, fn, *per_shard):
+        """``fn`` of each non-empty local shard's items of ``per_shard``,
+        with its device current, as one shard of the pass: every shard's
+        work is issued before any host wait.  None for an empty shard."""
+        out = []
+        for (off, sub, dev), *args in zip(self._shards(ids), *per_shard):
+            if not len(sub):
+                out.append(None)
+                continue
+            with on_device(dev), _b.pass_shard(off, len(ids)):
+                out.append(fn(*args))
+        return out
+
+    def _shard_states(self, st):
+        """A chunk's state as the list of its shards' states."""
+        return [st] if self._mesh is None else st
+
+    def _gathered_state(self):
+        """Each chunk's whole state (on a mesh, its shards' states
+        concatenated on the host, every process's), as an unsharded fit
+        holds it."""
+        if self._mesh is None:
+            return list(self._state)
+        return [_b.cat_cells(self._gathered([None if s is None else _b.tree_to(s, "cpu") for s in st]))
+                for st in self._state]
+
+    def _placed(self, ids, state):
+        """A chunk's whole (host) state split over this process's shards,
+        each on its device, as :meth:`fit` leaves it."""
+        sizes = split_sizes(len(ids), self._mesh.size)
+        parts = _b.split_cells(state, sizes)
+        return [_b.tree_to(parts[k], dev) if sizes[k] else None
+                for k, dev in zip(self._mesh.local_shards, self._mesh.devices)]
+
+    def _to_host(self, ids, res, T, n_outputs, dtype):
+        """A pass's output, (cells, T, n_outputs) on the host: each local
+        shard's result copied into its rows of one block (no second host
+        copy), and on a mesh of several processes every process's rows."""
+        dtype = next((torch.empty(0, dtype=r.dtype).numpy().dtype for r in res if r is not None), dtype)
+        blk = np.empty((len(ids), T, n_outputs), dtype)
+        mine = []
+        for (off, sub, _), r in zip(self._shards(ids), res):
+            if r is not None:
+                rows = blk[off:off + len(sub)]
+                torch.from_numpy(rows).copy_(r.reshape(rows.shape))
+                mine.append((off, rows))
+        if self._mesh is not None and self._mesh.world > 1:
+            for part in gather_objects(mine, self._mesh):
+                for off, rows in part:
+                    blk[off:off + len(rows)] = rows
+        return blk
+
+    def _gathered(self, local):
+        """This process's per-shard host blocks of a pass, and on a mesh of
+        several processes every process's, in mesh order."""
+        local = [a for a in local if a is not None]
+        if self._mesh is None:
+            return local
+        return [a for part in gather_objects(local, self._mesh) for a in part]
 
     def _plan_chunks(self):
         """Valid-cell id chunks split by ``cell_chunk_size``, in ascending
@@ -212,16 +313,19 @@ class PointWiseDownscaler:
         self._state_plan = self._plan_chunks()
 
         def _prep(ids):
-            xd = self._to_device(px["flat"], ids)
-            yd = self._to_device(py["flat"], ids)[:, :, 0] if py is not None else None
-            return xd, yd
+            xs = self._pack_shards(px["flat"], ids)
+            ys = self._pack_shards(py["flat"], ids) if py is not None else [None] * len(xs)
+            return xs, [None if y_ is None else y_[:, :, 0] for y_ in ys]
+
+        def _fit(xd, yd):
+            return _b.batched_fit(self._model, self._fit_index, xd, yd)
 
         # double-buffered host feed: pack + copy chunk i+1 while the device
         # fits chunk i
-        self._state = [
-            _b.batched_fit(self._model, self._fit_index, xd, yd)
-            for xd, yd in prefetched(self._state_plan, _prep)
-        ]
+        self._state = []
+        for ids, (xs, ys) in zip(self._state_plan, prefetched(self._state_plan, _prep)):
+            st = self._on_shards(ids, _fit, xs, ys)
+            self._state.append(st[0] if self._mesh is None else st)
         return self
 
     # ------------------------------------------------------------------
@@ -314,15 +418,13 @@ class PointWiseDownscaler:
         if self._state is None:
             outs = [self._per_cell(px, method, n_outputs)]
         else:
-            outs = [
-                run(st, xd).cpu().numpy()
-                for st, xd in zip(
-                    self._state,
-                    prefetched(self._state_plan, lambda ids: self._to_device(px["flat"], ids)),
-                )
-            ]
+            outs = []
+            for ids, st, xs in zip(self._state_plan, self._state,
+                                   prefetched(self._state_plan, lambda ids: self._pack_shards(px["flat"], ids))):
+                res = self._on_shards(ids, run, self._shard_states(st), xs)
+                outs.append(self._to_host(ids, res, T, n_outputs, px["flat"].dtype))
         if len(outs) == 1:
-            out_v = outs[0]  # one chunk: no full-size host copy
+            out_v = outs[0]  # one block: no full-size host copy
         else:
             out_v = np.concatenate(outs, axis=0) if outs else np.zeros((0, T, n_outputs), px["flat"].dtype)
         nv = len(self._cell_ids)
@@ -369,14 +471,20 @@ class PointWiseDownscaler:
         if self._state is None:
             vals = np.asarray([getattr(self._models[c], key) for c in self._cell_ids])
         else:
-            chunks = [_b.batched_attrs(self._model, st) for st in self._state]
-            if key not in chunks[0]:
+            chunks = [[None if s is None else _b.batched_attrs(self._model, s) for s in self._shard_states(st)]
+                      for st in self._state]
+            avail = next(c for shards in chunks for c in shards if c is not None)
+            if key not in avail:
                 raise AttributeError(
                     f"attribute {key!r} is not exposed by the batched "
                     f"implementation of {type(self._model).__name__}; "
-                    f"available: {sorted(chunks[0])}"
+                    f"available: {sorted(avail)}"
                 )
-            vals = np.concatenate([np.asarray(c[key]) for c in chunks], axis=0)  # (Cv, ...)
+            vals = np.concatenate(
+                [np.asarray(a) for shards in chunks
+                 for a in self._gathered([None if c is None else c[key] for c in shards])],
+                axis=0,
+            )  # (Cv, ...)
         extra_shape = vals.shape[1:]
 
         full = np.full((C, *extra_shape), np.nan, dtype=dtype or float)
@@ -403,7 +511,7 @@ class PointWiseDownscaler:
             [
                 f"<skdownscale_tpu_torch.{type(self).__name__}>",
                 f"  Fit Status: {self._state is not None or self._models is not None}",
-                f"  Device: {self.device}",
+                f"  Device: {self.device if self._mesh is None else self._mesh}",
                 f"  Model:\n    {self._model}",
             ]
         )

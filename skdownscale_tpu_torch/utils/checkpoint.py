@@ -15,6 +15,10 @@ groupers.  So a file can only build what a fitted model holds.
 
 :func:`load` / :func:`load_state` refuse a newer format version with a
 named error, and anything else that is not version 1 as unrecognized.
+
+A downscaler fitted on a cell mesh is saved gathered (its shards' states
+concatenated on the cell axis, in the same format), and :func:`load`
+restores onto any mesh: saved on N shards, loaded on M.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import json
 import numpy as np
 import torch
 
-from ..parallel.mesh import MULTI_DEVICE_ITEM
+from ..parallel.mesh import as_mesh
 from .device import resolve
 
 __all__ = ["save", "load", "save_state", "load_state"]
@@ -253,7 +257,7 @@ def save(path: str, downscaler) -> None:
         "cell_ids": w.array(downscaler._cell_ids),
         "state_plan": [w.array(ids) for ids in downscaler._state_plan],
         "fit_index": w.index(downscaler._fit_index),
-        "state": w.tree(list(downscaler._state)),
+        "state": w.tree(downscaler._gathered_state()),
     }
     w.save(path, manifest)
 
@@ -263,17 +267,13 @@ def load(path: str, sharding=None, device="cuda"):
     its state on ``device`` in the dtypes it was saved in.  A state saved
     from a CPU run and loaded on a CUDA device is cast to float32, as the
     runner fits there, except a state that keeps float64 on every device
-    (``float64_on_every_device``, ARRM's).  ``sharding`` waits for the
-    multi-device layer."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "load(sharding=...) waits for the port of the multi-device layer "
-            f"({MULTI_DEVICE_ITEM}); pass device= to load on one device"
-        )
+    (``float64_on_every_device``, ARRM's).  ``sharding`` (a cell mesh, in
+    place of ``device``) restores the state split over the mesh as its fit
+    would have left it, whatever mesh it was saved from."""
     from ..pointwise import PointWiseDownscaler
     from ..xlite import DataArray as _DA
 
-    dev = resolve(device, "load")
+    dev = resolve(device, "load") if sharding is None else as_mesh(sharding).devices[0]
     r = _Reader(path)
     m = r.manifest
     model = r.tree(m["model"], dev)
@@ -282,7 +282,8 @@ def load(path: str, sharding=None, device="cuda"):
             raise ValueError(f"checkpoint sets {k!r}, which is not a fitted scalar attribute")
         setattr(model, k, v["value"])
 
-    d = PointWiseDownscaler(model, dim=m["dim"], device=dev, cell_chunk_size=m["cell_chunk_size"])
+    d = PointWiseDownscaler(model, dim=m["dim"], device=dev, sharding=sharding,
+                            cell_chunk_size=m["cell_chunk_size"])
     px = m["px_meta"]
     d._px_meta = {
         "spatial_dims": tuple(px["spatial_dims"]),
@@ -295,6 +296,11 @@ def load(path: str, sharding=None, device="cuda"):
     d._state_plan = [r.arrays[k] for k in m["state_plan"]]
     d._fit_index = r.index(m["fit_index"])
     d._maker = lambda data, dims, coords: _DA(data, dims, coords)
-    d._state = r.tree(m["state"], dev, to_float32=dev.type == "cuda" and m["device"] == "cpu")
+    cast = dev.type == "cuda" and m["device"] == "cpu"
+    if sharding is None:
+        d._state = r.tree(m["state"], dev, to_float32=cast)
+    else:
+        whole = r.tree(m["state"], torch.device("cpu"), to_float32=cast)
+        d._state = [d._placed(ids, st) for ids, st in zip(d._state_plan, whole)]
     d._models = None
     return d

@@ -1164,3 +1164,51 @@ def test_checkpoint_of_a_card_grid_loads_back_on_the_card_bitwise(cuda_device, r
     want = torch.float64 if kind == "arrm" else torch.float32
     assert all(t.dtype == want for t in _tensors(moved._state) if t.is_floating_point())
     npt.assert_allclose(moved.predict(X).values, cpu.predict(x64).values, atol=1e-3, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_meshes_of_one_card_match_the_unsharded_runs(cuda_device, rng, monkeypatch, tmp_path):
+    """A mesh of repeated card devices: the sharded runner (dense BCSD, K1
+    and K2 once a shard) against the unsharded one, a grid whose exact
+    ladder is above K6's row limit fit by the sketch, and a zarr store fed
+    as float32 shards.
+
+    Shards of 13 cells are not bitwise equal to one pass of 39 here:
+    PyTorch's CUDA reductions and cuBLAS choose their kernels, and so their
+    order of addition, by the row count, which moves values by rounding
+    (and a near-tied rank by a step of its CDF).  They are held to the
+    BCSD limits of ``chip_smoke.py`` (p99.9 of |diff| <= 1e-3 K, at most
+    0.1% of values above 1e-3 K, none above 5 K); at config 2's shard
+    sizes ``chip_smoke.py`` holds the sharded run bitwise."""
+    from skdownscale_tpu_torch.global_models import quantile as GQ
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.parallel import cell_mesh, feed_zarr_cells
+    from skdownscale_tpu_torch.utils import zarrlite
+
+    mesh = cell_mesh([cuda_device] * 3)
+    idx = pd.date_range("1980-01-01", periods=120, freq="MS")
+    x = (284 + rng.normal(0, 2, (120, 40))).astype(np.float32)
+    y = (283 + rng.normal(0, 1.8, (120, 40))).astype(np.float32)
+    x[:, 5] = y[:, 5] = np.nan
+    X, Y = (DataArray(a, ("time", "cell"), {"time": idx, "cell": np.arange(40)}) for a in (x, y))
+    one = P.PointWiseDownscaler(P.BcsdTemperature(return_anoms=False), device=cuda_device).fit(X, Y).predict(X)
+    LAUNCHES.clear()
+    three = P.PointWiseDownscaler(P.BcsdTemperature(return_anoms=False), sharding=mesh).fit(X, Y).predict(X)
+    assert LAUNCHES["count_sort_segments"] == LAUNCHES["rank_map_segments"] == 3
+    a, b = three.values.astype(np.float64), one.values.astype(np.float64)
+    npt.assert_array_equal(np.isnan(a), np.isnan(b))
+    d = np.abs(a - b)[np.isfinite(b)]
+    assert np.quantile(d, 0.999) <= 1e-3 and np.mean(d > 1e-3) <= 1e-3 and d.max() <= 5.0
+
+    g = torch.randn(40, 50, device=cuda_device)
+    monkeypatch.setattr(GQ, "_K6_MAX_KNOTS", 1000)
+    with pytest.raises(ValueError, match="pass a cell mesh"):
+        P.GlobalQuantileMapper().fit(g, g)
+    st = P.GlobalQuantileMapper(mesh=cell_mesh([cuda_device] * 2), sample_per_shard=64).fit(g, g).state_
+    assert int(st.n_x) == 2000 and bool(torch.isfinite(st.x_ladder).all())
+
+    path = str(tmp_path / "g.zarr")
+    zarrlite.save_group(path, {"gcm": x.astype(np.float64)}, chunks=(120, 16))
+    sc, n, _ = feed_zarr_cells(path, mesh, var="gcm")
+    assert n == 40 and all(s.dtype == torch.float32 and s.is_cuda for s in sc.shards)
+    npt.assert_array_equal(sc.gather()[:40], x.T)

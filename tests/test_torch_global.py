@@ -217,16 +217,24 @@ def test_global_downscaler_matches_jax_on_bare_arrays(rng):
 
 
 def test_sharded_forms_and_a_missing_card_raise(rng, monkeypatch):
+    """The sharded forms run (``tests/test_torch_mesh.py`` holds them
+    against the JAX package's); a missing card raises."""
     X = rng.normal(0, 1, (4, 30))
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 A, "The multi-device layer"'):
-        PGM.GlobalDownscaler(PGM.GlobalLinearRegressor(), sharding=object())
-    two = [torch.device("cpu"), torch.device("cpu")]
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 A, "The multi-device layer"'):
-        PGM.GlobalQuantileMapper(mesh=two, device="cpu").fit(X, X)
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 A, "The multi-device layer"'):
-        PQ.pooled_quantile_table(torch.from_numpy(X), PQ.ladder_positions(8), two)
+    two = pmesh.cell_mesh(["cpu", "cpu"])
+    y = 2.0 * X + 1.0
+    lin = PGM.GlobalDownscaler(PGM.GlobalLinearRegressor(), sharding=two).fit(X, y)
+    _close(lin.predict(X), PGM.GlobalDownscaler(PGM.GlobalLinearRegressor(), device="cpu").fit(X, y).predict(X))
+    # each shard holds 60 samples: a sketch of 60 a shard takes every one
+    # of them at weight 1, which is the exact ladder
+    exact = PGM.GlobalQuantileMapper(device="cpu").fit(X, X).state_.x_ladder
+    sk = PGM.GlobalQuantileMapper(mesh=two, sample_per_shard=60, device="cpu").fit(X, X)
+    assert int(sk.state_.n_x) == X.size
+    _close(sk.state_.x_ladder, exact)
+    lad, n = PQ.pooled_quantile_table(torch.from_numpy(X), PQ.ladder_positions(8), two, sample_per_shard=60)
+    _close(lad, PQ.pooled_quantile_table(torch.from_numpy(X), PQ.ladder_positions(8))[0])
+    assert int(n) == X.size
     # a mesh of one device is the one-device fit
-    one = PGM.GlobalQuantileMapper(mesh=[torch.device("cpu")], device="cpu").fit(X, X)
+    one = PGM.GlobalQuantileMapper(mesh=pmesh.cell_mesh(["cpu"]), device="cpu").fit(X, X)
     _close(one.transform(X), PGM.GlobalQuantileMapper(device="cpu").fit(X, X).transform(X))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: PGM.GlobalLinearRegressor().fit(X[..., None], X),

@@ -38,9 +38,10 @@ def _groups_equal(a, b):
 
 def test_import_has_no_jax():
     """Every submodule of the port imports, the z-score, ARRM, grouping,
-    global-model and device-layer modules, the store layer, the pipeline,
-    the utilities and the CLI among them, and none of them pulls in jax or
-    the JAX package."""
+    global-model and device-layer modules (the meshes, multi-process
+    feeding, time sharding and the dry run among them), the store layer,
+    the pipeline, the utilities and the CLI among them, and none of them
+    pulls in jax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys, skdownscale_tpu_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, 'skdownscale_tpu_torch.')]\n"
@@ -51,10 +52,11 @@ def test_import_has_no_jax():
         "need = ['models.zscore', 'models.arrm', 'models.grouping', 'parallel.mesh',"
         " 'global_models.linear', 'global_models.quantile', 'global_models.downscaler',"
         " 'utils.zarrlite', 'utils.profiling', 'utils.checkpoint', 'utils.metrics',"
-        " 'utils.disagg', 'parallel.zarr_io', 'parallel.pipeline', 'cli']\n"
+        " 'utils.disagg', 'parallel.zarr_io', 'parallel.pipeline', 'parallel.multihost',"
+        " 'parallel.timeshard', 'parallel.dryrun', 'cli']\n"
         "missing = [n for n in need if 'skdownscale_tpu_torch.' + n not in names]\n"
         "print(len(names), bad, missing)\n"
-        "raise SystemExit(1 if bad or missing or len(names) < 53 else 0)\n"
+        "raise SystemExit(1 if bad or missing or len(names) < 56 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

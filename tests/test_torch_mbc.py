@@ -266,8 +266,14 @@ def test_mbcn_grid_errors(rng):
     y2, _, _ = _grids(rng, PDA, PDS, ny=5)
     with pytest.raises(ValueError, match="spatial shapes"):
         PM.mbcn_grid(y2, pxh, pxf, n_iterations=2, device="cpu")
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 A, "The multi-device layer"'):
-        PM.mbcn_grid(py, pxh, pxf, n_iterations=2, device="cpu", sharding=object())
+    # a sharding is a device too: cells split over a mesh, as unsharded
+    from skdownscale_tpu_torch.parallel import cell_mesh, cell_sharding
+
+    got = PM.mbcn_grid(py, pxh, pxf, n_iterations=2, sharding=cell_sharding(cell_mesh(["cpu"] * 2), 3))
+    want = PM.mbcn_grid(py, pxh, pxf, n_iterations=2, device="cpu")
+    for g, w in zip(got, want):
+        for v in ("tmax", "pr"):
+            npt.assert_array_equal(g[v].values, w[v].values)
     with pytest.raises(ValueError, match="group"):
         PM.mbcn_grid(py, pxh, pxf, n_iterations=2, device="cpu", group="season")
 

@@ -32,7 +32,7 @@ import skdownscale_tpu_torch.utils.disagg as PD
 import skdownscale_tpu_torch.utils.metrics as PM
 import skdownscale_tpu_torch.utils.profiling as PP
 from skdownscale_tpu_torch.models.quantile import qmr_fit
-from skdownscale_tpu_torch.parallel.mesh import MULTI_DEVICE_ITEM
+from skdownscale_tpu_torch.parallel.mesh import cell_mesh
 from skdownscale_tpu_torch.utils.timeindex import TimeIndex as PTI
 from skdownscale_tpu_torch.xlite import DataArray as PDA
 
@@ -230,10 +230,12 @@ def test_checkpoint_versions_and_devices_are_refused_with_the_jax_texts(tmp_path
         np.savez(f, data=np.zeros(3))
     with pytest.raises(ValueError, match="unrecognized format version None"):
         CK.load_state(path, device="cpu")
-    d, _ = _fitted(rng, "bcsd")
+    d, X = _fitted(rng, "bcsd")
     CK.save(path, d)
-    with pytest.raises(NotImplementedError, match=MULTI_DEVICE_ITEM):
-        CK.load(path, sharding=object(), device="cpu")
+    # a mesh is a device too: the state restores split over it
+    sharded = CK.load(path, sharding=cell_mesh(["cpu"] * 2))
+    assert sharded.device == torch.device("cpu") and len(sharded._state[0]) == 2
+    npt.assert_array_equal(sharded.predict(X).values, d.predict(X).values)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CK.load(path)

@@ -25,12 +25,14 @@ import jax
 
 import skdownscale_tpu.utils.native as JN
 from skdownscale_tpu.parallel.pipeline import run_pointwise_pipeline as jax_pipeline
+from skdownscale_tpu.parallel import mesh as jmesh
 from skdownscale_tpu.parallel.zarr_io import ZarrGridSource as JSource
+from skdownscale_tpu.parallel.zarr_io import feed_zarr_cells as jax_feed_zarr_cells
 from skdownscale_tpu.utils import zarrlite as JZ
 
 import skdownscale_tpu_torch as P
 import skdownscale_tpu_torch.utils.native as PN
-from skdownscale_tpu_torch.parallel.mesh import MULTI_DEVICE_ITEM
+from skdownscale_tpu_torch.parallel.mesh import cell_mesh
 from skdownscale_tpu_torch.parallel.pipeline import run_pointwise_pipeline
 from skdownscale_tpu_torch.parallel.zarr_io import ZarrGridSource, feed_zarr_cells
 from skdownscale_tpu_torch.utils import zarrlite as PZ
@@ -151,9 +153,25 @@ def test_groups_on_disk_are_identical_and_read_across(tmp_path, rng, zarr_format
     assert (src.n_time, src.spatial_shape, src.n_cells) == (T, (ny, nx), ny * nx)
 
 
-def test_feed_zarr_cells_names_the_multi_device_layer():
-    with pytest.raises(NotImplementedError, match=MULTI_DEVICE_ITEM):
-        feed_zarr_cells({}, mesh=object())
+def test_feed_zarr_cells_names_the_multi_device_layer(tmp_path, rng):
+    """``feed_zarr_cells`` places the store's cells on a mesh (one process:
+    every slice is this process's): the same shards, bitwise, as the JAX
+    package's feed onto its 8 virtual devices, the NaN pad rows, the cell
+    count and the time index; a mesh of CUDA devices would read float32."""
+    T, ny, nx = 24, 3, 5
+    g = rng.normal(280, 5, (T, ny, nx))
+    t = np.asarray(pd.date_range("2000-01-01", periods=T, freq="MS"), dtype="datetime64[ns]").view(np.int64)
+    path = str(tmp_path / "g.zarr")
+    PZ.save_group(path, {"gcm": g}, chunks=(T, 2, nx), compressor="zlib")
+    PZ.save_array(path, t, prefix="time", attrs={"kind": "datetime64[ns]"})
+    got, n, index = feed_zarr_cells(path, cell_mesh(["cpu"] * 8), var="gcm")
+    want, jn, jindex = jax_feed_zarr_cells(path, jmesh.cell_mesh(), var="gcm")
+    assert n == jn == ny * nx and got.shape == want.shape == (16, T)
+    assert index.equals(jindex) and isinstance(index, pd.DatetimeIndex)
+    assert all(s.shape == (2, T) and s.dtype == torch.float64 for s in got.shards)
+    npt.assert_array_equal(got.gather(), np.asarray(want))
+    npt.assert_array_equal(got.gather()[:n], ZarrGridSource(path, "gcm").read_cells(0, n))
+    assert np.isnan(got.gather()[n:]).all()
 
 
 # ---------------------------------------------------------------------------

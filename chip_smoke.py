@@ -173,7 +173,23 @@ with a non-zero exit at the first failure, it:
     K9 22 times a shard; and two processes of 4 shards of cuda:0 joined by
     gloo (``python -m skdownscale_tpu_torch.parallel.dryrun``) on the
     pipeline's store, bitwise equal to one process of the same 8-shard
-    mesh, ladder equal.
+    mesh, ladder equal;
+26. the grouped Cunnane maps (``models.grouped.cunnane_transform_padded``
+    then ``cunnane_inverse_padded``) on 2,048 cells of config 5's daily
+    layout (``PaddedDOYGrouper``: 366 groups of up to 620 days): K6 once
+    by each map, bitwise against its plain version on both calls'
+    arguments and timed, the round trip on 64 cells against the CPU
+    float64 path within the quantile family's limits;
+27. every example of ``skdownscale_tpu_torch/examples`` through its
+    ``main`` on the card at its default size (``continental_bcsd`` at
+    1,048,576 cells, with 2,048 of them held against the CPU float64 path,
+    and in its ``--zarr`` form at 64 x 64), each one's launches counted
+    from 0 around the call and the kernels of its path required; the
+    first launch of each kernel shape in that run held against the
+    kernel's plain version on the same inputs; then the numbers that run
+    returns against the same example on the CPU in float64 with the same
+    seed and arguments, each within the limit that ``EXAMPLES`` names for
+    it.
 
 The line before the last is a JSON object with each kernel's launches by
 its path, error, times, bound and the one PyTorch call that computes the
@@ -193,12 +209,14 @@ registers and spills.
 ``python3 chip_smoke.py --pipeline`` runs only the pipeline phase (23),
 to time a change of ``parallel/pipeline.py`` against another tree's in
 one call; ``python3 chip_smoke.py --multi-device`` writes the pipeline's
-store and runs only the multi-device phase (25).
+store and runs only the multi-device phase (25); ``python3 chip_smoke.py
+--examples`` builds the kernels and runs only phases 26 and 27.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import os
 import subprocess
@@ -398,6 +416,85 @@ TOL_SD, TOL_SD_NUM = 1e-4, 1e-5
 # float32 on the CPU at 512 cells: p99.9 8.7e-5 K, max 1.26e-4 K with
 # conserve); cuBLAS sums in another order
 TOL_TD = (2e-4, 5e-4)  # p99.9, max in K
+# the examples (python -m skdownscale_tpu_torch.examples.<name>): each
+# one's main on the card at its default size (continental_bcsd at config
+# 2b's 1,048,576 cells x 480 months, float32, three grids on the card), its
+# launches counted from 0 around the call; then the numbers of that run
+# against the same example on the CPU in float64 with the same seed and
+# arguments, each within the limit EXAMPLES names for it.  The continental
+# grid is too large for the CPU: its run holds a subset of cells itself
+# (--check-cells EX_CHECK_CELLS cells spread over the grid, run again on the
+# CPU in float64) to the BCSD limits, and its --zarr form runs at
+# EX_ZARR_SIDE on both.  The notebook makers write their notebooks (the
+# card's machine has neither nbformat nor a Jupyter kernel to run them).
+EX_CONTINENTAL_SIDE, EX_CHECK_CELLS, EX_ZARR_SIDE = 1_024, 2_048, 64
+# Limits of an example's numbers, card (float32) against CPU (float64), as
+# (kind, limit): "absolute" and "relative" bound |card - CPU|, "exact" asks
+# for equality, "own" holds the card's number alone to its limit (it is
+# measured against the run's own CPU subset or its own inputs), "time" is
+# not compared.  A mean or bias in K over values each within the BCSD
+# limits moves by at most TOL_P999 + TOL_SHARE * TOL_MAX (EX_MEAN); r and r2
+# of series of ~10 K spread so moved change by ~1e-4, held to 1e-3
+# (EX_STAT); an rmse, and GARD's mean of a future prediction, by the
+# limits' p99.9 plus a near-tie's swap (TOL_GARD: 1e-2, EX_RMSE); MBCn's
+# correlations by TOL_MBCN_FULL's correlation limit (EX_CORR), its energy
+# distances (of 1,461 points each) by 2e-2 (EX_ENERGY): the float32
+# rotations end at another sample of the same corrected distribution; their
+# ratio to 10%; z-score means by TOL_Z's maximum (EX_Z); the pooled slope by
+# TOL_G_LINEAR's relative limit; a conservation error is each run's own, at
+# most TOL_TD's maximum (EX_CONSERVE); flags and counts exactly.
+EX_MEAN, EX_STAT, EX_RMSE = ("absolute", TOL_P999 + TOL_SHARE * TOL_MAX), ("absolute", 1e-3), ("absolute", 1e-2)
+EX_CORR, EX_ENERGY = ("absolute", TOL_MBCN_FULL[None][1]), ("absolute", 2e-2)
+EX_Z, EX_CONSERVE = ("absolute", TOL_Z[1]), ("own", TOL_TD[1])
+EX_EXACT, EX_TIME = ("exact", 0.0), ("time", None)
+EX_GARD_MODELS = ("PureAnalog-best-1", "PureAnalog-sample-10", "PureAnalog-weight-10", "PureAnalog-mean-10",
+                  "AnalogRegression-100", "PureRegression")
+EX_NOTEBOOK = {"cells": EX_EXACT, "code_cells": EX_EXACT, "figures": EX_EXACT}
+# (example, arguments, whether the CPU float64 run at the same arguments is
+# made, kernels its path must launch, the limit of every number it returns)
+EXAMPLES = [
+    ("bcsd_example", [], True, ("count_sort_segments", "rank_map_segments"),
+     {"raw_bias": EX_MEAN, "corrected_bias": EX_MEAN, "r2": EX_STAT, "pr_raw_mean": EX_MEAN,
+      "pr_corrected_mean": EX_MEAN, "pr_obs_mean": EX_MEAN}),
+    ("gard_example", [], True, ("pure_analog_stats", "analog_regression_stats"),
+     {f"{m}.{k}": lim for m in EX_GARD_MODELS
+      for k, lim in (("rmse", EX_RMSE), ("r", EX_STAT), ("future_mean", EX_RMSE))}),
+    ("mbcn_example", [], True, ("sort_rows", "sort_rows_with_positions", "unsort_rows", "batched_interp"),
+     {"corr_obs": EX_CORR, "corr_raw": EX_CORR, "corr_corrected": EX_CORR, "energy_raw": EX_ENERGY,
+      "energy_corrected": EX_ENERGY, "energy_reduction": ("relative", 0.1), "pr_positive": EX_EXACT}),
+    ("global_models_example", [], True, ("batched_interp",),
+     {"bias_before": EX_MEAN, "bias_after": EX_MEAN, "rmse": EX_RMSE, "slope": ("relative", TOL_G_LINEAR[0])}),
+    ("sharded_grid", [], True, ("count_sort_segments", "rank_map_segments"),
+     {"corrected_mean": EX_MEAN, "obs_mean": EX_MEAN, "raw_mean": EX_MEAN, "time_sharded_bitwise": EX_EXACT}),
+    ("full_bcsd_pipeline", [], True, ("count_sort_segments", "rank_map_segments"),
+     {"mean_abs_anomaly": EX_MEAN, "fine_monthly_mean": EX_MEAN, "daily_steps": EX_EXACT,
+      "conservation_error": EX_CONSERVE}),
+    ("continental_bcsd", ["--n-side", str(EX_CONTINENTAL_SIDE), "--check-cells", str(EX_CHECK_CELLS)], False,
+     ("count_sort_segments", "rank_map_segments"),
+     {"cells": EX_EXACT, "streaming": EX_EXACT, "ocean_nan": EX_EXACT, "corrected_mean": EX_MEAN,
+      "obs_mean": EX_MEAN, "check_p999": ("own", TOL_P999), "check_share": ("own", TOL_SHARE),
+      "check_max": ("own", TOL_MAX), "wall_s": EX_TIME, "fit_s": EX_TIME, "predict_s": EX_TIME,
+      "cells_per_s": EX_TIME}),
+    ("continental_bcsd", ["--n-side", str(EX_ZARR_SIDE), "--zarr"], True, ("count_sort_segments", "rank_map_segments"),
+     {"cells": EX_EXACT, "ocean_nan": EX_EXACT, "corrected_mean": EX_MEAN, "obs_mean": EX_MEAN,
+      **{k: EX_TIME for k in ("wall_s", "read_s", "pack_s", "h2d_s", "device_s", "write_s", "cells_per_s")}}),
+    ("tutorial", [], True, ("count_sort_segments", "rank_map_segments", "batched_interp", "sort_rows"),
+     {"raw_bias": EX_MEAN,
+      **{f"{m}_{k}": lim for m in ("BCSD", "QDM", "QM", "ZScore")
+         for k, lim in (("bias", EX_MEAN), ("rmse", EX_RMSE), ("r2", EX_STAT))},
+      "grid_raw_abs_bias": EX_MEAN, "grid_corrected_abs_bias": EX_MEAN, "grid_ocean_nan": EX_EXACT,
+      "zscore_rcp_mean": EX_Z, "zscore_corrected_mean": EX_Z, "disagg_conservation_error": EX_CONSERVE,
+      **{f"mbcn_{p}_{k}": lim for p in ("obs", "raw_future", "MBCn_future")
+         for k, lim in (("corr", EX_CORR), ("energy", EX_ENERGY))}}),
+    ("make_tutorial_notebook", [], True, (), EX_NOTEBOOK),
+    ("make_analog_notebook", [], True, (), EX_NOTEBOOK),
+]
+# the grouped Cunnane maps at config 5's daily layout (PaddedDOYGrouper, 366
+# groups of up to 620 days) on CN_CELLS cells: K6 bitwise against its plain
+# version on both calls' arguments, the round trip (values -> plotting
+# positions -> values) on CN_REF_CELLS cells against the CPU float64 path
+# within the quantile family's limits (TOL_Q)
+CN_CELLS, CN_REF_CELLS = 2_048, 64
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -1069,7 +1166,7 @@ def mbcn_interp_inputs(dev):
     from unittest import mock
 
     from skdownscale_tpu_torch.models import mbc as PM
-    from skdownscale_tpu_torch.ops import interp as OI
+    OI = importlib.import_module("skdownscale_tpu_torch.ops.interp")  # ops.interp is the function
 
     dsets = mbcn_datasets(np.random.default_rng(SEED), M_LAT, M_LON, np.zeros(M_CELLS, dtype=bool))
     variables = list(dsets[0].data_vars)
@@ -2471,7 +2568,7 @@ def configG_phase(rng, card, dev):
 
     import skdownscale_tpu_torch as sdt
     from skdownscale_tpu_torch.kernels import LAUNCHES
-    from skdownscale_tpu_torch.ops import interp as OI
+    OI = importlib.import_module("skdownscale_tpu_torch.ops.interp")  # ops.interp is the function
 
     X, Y, _, nan_cells = quantile_grid(rng, Q_CELLS, Q_SIDE, G_TIME, None)
     C = Q_CELLS
@@ -3020,7 +3117,7 @@ def mesh_configG(rng, card, dev, mesh4, exact_row_ms):
     from skdownscale_tpu_torch.global_models import quantile as PQ
     from skdownscale_tpu_torch.kernels import LAUNCHES
     from skdownscale_tpu_torch.kernels import interp as I
-    from skdownscale_tpu_torch.ops import interp as OI
+    OI = importlib.import_module("skdownscale_tpu_torch.ops.interp")  # ops.interp is the function
 
     X, Y, _, nan_cells = quantile_grid(rng, Q_CELLS, Q_SIDE, G_TIME, None)
     C = Q_CELLS
@@ -3216,6 +3313,283 @@ def multi_device_phase(rng, card, dev, tmp, store, exact_row_ms=None):
           f"{t3 - t2:.1f} s, two processes {t4 - t3:.1f} s; card {card}")
 
 
+def flat_numbers(res, prefix=""):
+    out = {}
+    for k, v in res.items():
+        if isinstance(v, dict):
+            out.update(flat_numbers(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = float(v)
+    return out
+
+
+def compare_example(label, limits, card_res, cpu_res):
+    """Every number of the card run against the CPU float64 run (or, for
+    the kind ``own``, against its limit), each by its entry in ``limits``;
+    a number without one, or one the CPU run lacks, fails.  The worst
+    margins are printed."""
+    card_res, cpu_res = flat_numbers(card_res), flat_numbers(cpu_res or {})
+    _check(card_res.keys() == limits.keys(),
+           f"{label}: numbers without a limit {sorted(card_res.keys() - limits.keys())}, limits without a "
+           f"number {sorted(limits.keys() - card_res.keys())}")
+    worst = []
+    for key, got in card_res.items():
+        kind, lim = limits[key]
+        _check(np.isfinite(got), f"{label}: {key} = {got} is not finite")
+        if kind == "time":
+            continue
+        if kind == "own":
+            _check(got <= lim, f"{label}: {key} = {got:.6g} above its limit {lim:g}")
+            worst.append((got / lim, key, got, lim))
+            continue
+        if not cpu_res:
+            continue
+        want = cpu_res[key]
+        d = abs(got - want)
+        lim_k = lim * abs(want) if kind == "relative" else lim
+        _check(d <= lim_k, f"{label}: {key} card {got:.6g} vs CPU float64 {want:.6g}: |diff| {d:.3g} "
+                           f"above its {kind} limit {lim:g}")
+        worst.append((d / lim_k if lim_k else 0.0, key, d, lim_k))
+    worst.sort(reverse=True)
+    return ", ".join(f"{k} {d:.3g} (limit {lim:.3g})" for _, k, d, lim in worst[:3]) or "nothing to compare"
+
+
+# every kernel wrapper of the port, by its module under skdownscale_tpu_torch.kernels
+WRAPPERS = {"rank_map": ("count_sort_segments", "rank_map_segments"), "slide_sort": ("slide_sorted_windows",),
+            "interp": ("batched_interp",), "knn": ("pure_analog_stats", "analog_regression_stats"),
+            "sort_rows": ("sort_rows", "sort_rows_with_positions", "unsort_rows")}
+
+
+def recording_launches(seen):
+    """A context in which every kernel wrapper, wherever a module of the
+    port binds it, keeps in ``seen`` the first call of each distinct shape
+    and keyword arguments on the card: (module, arguments, keyword
+    arguments, output), the tensors cloned as they go in and come out."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    def clone(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def recorder(mod, name, real):
+        def call(*args, **kw):
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            key = (name, tuple(tuple(t.shape) for t in ts), tuple(sorted(kw.items())))
+            if not (ts and ts[0].is_cuda) or key in seen:
+                return real(*args, **kw)
+            cloned = [clone(a) for a in args]
+            out = real(*args, **kw)
+            seen[key] = (mod, cloned, kw, tuple(map(clone, out)) if isinstance(out, tuple) else clone(out))
+            return out
+        return call
+
+    stack = contextlib.ExitStack()
+    for m, names in WRAPPERS.items():
+        mod = importlib.import_module(f"skdownscale_tpu_torch.kernels.{m}")
+        for name in names:
+            real = getattr(mod, name)
+            rec = recorder(mod, name, real)
+            for holder in [m_ for k, m_ in list(sys.modules.items()) if k.startswith("skdownscale_tpu_torch")]:
+                for attr, v in list(vars(holder).items()):
+                    if v is real:
+                        stack.enter_context(mock.patch.object(holder, attr, rec))
+    return stack
+
+
+def hold_against_plain(label, seen):
+    """Each call kept by recording_launches against the kernel's plain
+    version on the same inputs, by the rules of the kernel phases: K7's
+    probability (and best / sample analog) bitwise, the rest within rtol
+    1e-5 + atol 1e-5; K8's count row bitwise, its sums within rtol 1e-5 +
+    atol 1e-3, its probability within 5e-4; every other kernel bitwise."""
+    import torch
+
+    done = []
+    for (name, shapes, kw_items), (mod, args, kw, got) in seen.items():
+        want = getattr(mod, f"{name}_plain")(*args, **kw)
+        what = f"{label}: {name} {shapes} {dict(kw_items) or ''}"
+        if name == "pure_analog_stats":
+            bitwise_err(got[..., 1].contiguous(), want[..., 1].contiguous(), f"{what} prob")
+            if kw["kind"] in ("best_analog", "sample_analogs"):
+                bitwise_err(got[..., 0].contiguous(), want[..., 0].contiguous(), f"{what} pred")
+            err = within(got, want, 1e-5, 1e-5, what)
+        elif name == "analog_regression_stats":
+            bitwise_err(got[0][..., 0].contiguous(), want[0][..., 0].contiguous(), f"{what} count")
+            err = max(within(got[0], want[0], 1e-5, 1e-3, f"{what} stats"),
+                      within(got[1], want[1], 0.0, 5e-4, f"{what} prob"))
+        else:
+            err = 0.0
+            for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+                if g.is_floating_point():
+                    err = max(err, bitwise_err(g, w, what))
+                else:
+                    _check(torch.equal(g, w.to(g.dtype)), f"{what}: positions differ from the plain version's")
+        done.append(f"{name} {'x'.join(map(str, shapes[0]))} {err:.3g}")
+    return "; ".join(done) or "none"
+
+
+def examples_phase(card, dev, tmp):
+    """Every example's main on the card at its default size, counted and
+    timed; the first launch of each kernel shape in that run held against
+    the kernel's plain version on the same inputs; then the run's numbers
+    against the same example on the CPU in float64."""
+    import contextlib
+    import io
+
+    import torch
+
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+
+    t_phase = time.perf_counter()
+    totals = {}
+    for name, args, on_cpu, needs, limits in EXAMPLES:
+        mod = importlib.import_module(f"skdownscale_tpu_torch.examples.{name}")
+        out = os.path.join(tmp, "examples", name)
+        label = f"example {name}{' --zarr' if '--zarr' in args else ''}"
+
+        def run(where, store):
+            extra = ["--device", where, "--out", out]
+            if name.startswith("make_"):
+                extra = ["--device", where, "--path", os.path.join(out, f"{store}.ipynb")]
+                os.makedirs(out, exist_ok=True)
+            store_arg = [os.path.join(out, f"{store}.zarr")] if "--zarr" in args else []
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                res = mod.main([*args, *store_arg, *extra])
+            return res, text.getvalue()
+
+        seen = {}
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with recording_launches(seen):
+            res, text = run(str(dev), "card")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        for line in text.strip().splitlines():
+            print(f"{label}: | {line}")
+        missing = [k for k in needs if not launches.get(k)]
+        _check(not missing, f"{label}: {missing} not launched by the run ({launches})")
+        t1 = time.perf_counter()
+        plain = hold_against_plain(label, seen)
+        del seen
+        t2 = time.perf_counter()
+        cpu_res = run("cpu", "cpu")[0] if on_cpu else None
+        how = "the CPU float64 run at the same arguments" if on_cpu else "its own limits"
+        worst = compare_example(label, limits, res, cpu_res)
+        print(f"{label}: wall {wall:.3f} s on the card; launches {launches or 'none'}; the first launch "
+              f"of each shape against its plain version on the same inputs in {t2 - t1:.1f} s (kernel, "
+              f"first input's shape, max |diff|): {plain}; against {how} in {time.perf_counter() - t2:.1f} "
+              f"s: worst {worst}; card {card}")
+    print(f"examples: phase {time.perf_counter() - t_phase:.1f} s; launches of every example together "
+          f"{totals}; card {card}")
+    return totals
+
+
+def cunnane_phase(card, dev):
+    """``cunnane_transform_padded`` then ``cunnane_inverse_padded`` on
+    CN_CELLS cells of config 5's daily layout on the card: K6 launched once
+    by each, bitwise against its plain version on both calls' arguments and
+    timed, the round trip on CN_REF_CELLS cells against the CPU float64
+    path."""
+    from unittest import mock
+
+    import torch
+
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.kernels import interp as I
+    from skdownscale_tpu_torch.models import grouped as PG
+    from skdownscale_tpu_torch.utils.timeindex import TimeIndex, padded_doy_groups
+    OI = importlib.import_module("skdownscale_tpu_torch.ops.interp")  # ops.interp is the function
+
+    index = daily_index()
+    groups = padded_doy_groups(TimeIndex.from_pandas(index), 15)
+    counts, valid = groups.counts, groups.mask.reshape(-1)
+    G, Lt = groups.indices.shape
+    rng = np.random.default_rng(SEED)
+    seas = (10 * np.sin(2 * np.pi * index.dayofyear.to_numpy() / 365.25)).astype(np.float32)
+    y = rng.standard_normal((CN_CELLS, len(index)), dtype=np.float32) * 2.0 + (283.0 + seas)
+    x = rng.standard_normal((CN_CELLS, len(index)), dtype=np.float32) * 2.6 + (284.5 + seas)
+
+    def fit(yy, xx):
+        return (PG.cunnane_fit_padded(PG.gather_groups(yy, groups, fill=0.0), groups),
+                PG.gather_groups(xx, groups, fill=0.0))
+
+    def maps(cdf, xg):
+        pp = PG.cunnane_transform_padded(cdf, xg, groups, counts, extrapolate="both")
+        return pp, PG.cunnane_inverse_padded(cdf, pp, groups, counts, valid, extrapolate="both")
+
+    real, seen = OI.batched_interp, []
+
+    def record(xp, fp, q):
+        seen.append((xp, fp, q))
+        return real(xp, fp, q)
+
+    LAUNCHES.clear()
+    cdf, xg = fit(torch.from_numpy(y).to(dev), torch.from_numpy(x).to(dev))
+    fit_launches = {k: v for k, v in LAUNCHES.items() if v}
+    maps(cdf, xg)  # warm-up: the first K6 launch loads its library
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with mock.patch.object(OI, "batched_interp", record):
+        pp, back = maps(cdf, xg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k6 = LAUNCHES["batched_interp"]
+    _check(k6 == 2 and len(seen) == 2, f"cunnane: K6 launched {k6} times by the two maps, not 2")
+    rows = []
+    for call, (xp, fp, q) in zip(("transform", "inverse"), seen):
+        got = I.batched_interp(xp, fp, q)
+        torch.cuda.synchronize()
+        err = bitwise_err(got, I.batched_interp_plain(xp, fp, q), f"K6 cunnane {call}")
+        ms = cuda_ms(lambda: I.batched_interp(xp, fp, q), iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: I.batched_interp_plain(xp, fp, q), iters=3, warmup=1)
+        B, L, Q = q.shape[0], xp.shape[1], q.shape[1]
+        n_ops = B * Q * (np.ceil(np.log2(L)) + 15)
+        n_bytes = 4 * (xp.numel() + fp.numel() + q.numel() + got.numel())
+        b_ms, b_by = bound(n_bytes, n_ops)
+        # what the map itself must move: the cell's values, its queries and
+        # its output, and the plotting positions once (G x Lt, no cell axis);
+        # K6 is handed that table copied to every (cell, group) row
+        map_bytes = 4 * (3 * B * L + cdf.pp.numel())
+        m_ms, m_by = bound(map_bytes, n_ops)
+        geo = I.launch_geometry(xp, fp, q)
+        print(f"kernel batched_interp cunnane {call} ({B} rows = {CN_CELLS} cells x {G} groups, L={L}, "
+              f"Q={Q}, tables {xp.shape[0]} / {fp.shape[0]} rows): bitwise equal to plain (max |diff| "
+              f"{err}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound of the map {m_ms:.4f} ms ({m_by}, "
+              f"{map_bytes / 1e9:.4f} GB, the plotting positions read once), bound of K6's inputs "
+              f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB, the plotting positions copied to each of the "
+              f"{B} rows), {n_bytes / ms / 1e9:.3f} TB/s moved, library call none; "
+              f"{'staged' if geo['staged'] else 'device memory'}, {geo['threads']} threads a block, "
+              f"{geo['smem_bytes']} B shared a block, {geo['blocks_per_sm']} resident blocks an SM, "
+              f"grid {geo['grid']}; card {card}")
+        rows.append((call, ms, plain_ms, m_ms, b_ms))
+        del got
+    seen.clear()
+    print_top_kernels("cunnane transform + inverse", lambda: maps(cdf, xg))
+    ids = np.linspace(0, CN_CELLS - 1, CN_REF_CELLS).astype(np.int64)
+    pp64, back64 = maps(*fit(torch.from_numpy(y[ids].astype(np.float64)),
+                             torch.from_numpy(x[ids].astype(np.float64))))
+    m = np.broadcast_to(valid, back64.shape)
+    p999, mx, d = diff_stats(back[ids].cpu().numpy()[m], back64.numpy()[m])
+    share = float(np.mean(d > 1e-3))
+    pp_max = float(np.abs(pp[ids].cpu().numpy()[m] - pp64.numpy()[m]).max())
+    print(f"cunnane: transform + inverse of {CN_CELLS} cells x {G} groups x {Lt} (config 5's daily "
+          f"layout) in {wall * 1e3:.1f} ms wall, K6 {k6} launches (the fit before them: "
+          f"{fit_launches}); {CN_REF_CELLS} cells against CPU "
+          f"float64: round trip p99.9 |diff| {p999:.3g} K, share above 1e-3 K {share:.3g}, max {mx:.3g} K "
+          f"(limits {TOL_Q}), plotting positions max |diff| {pp_max:.3g}; card {card}")
+    _check(p999 <= TOL_Q[0] and share <= TOL_Q[1] and mx <= TOL_Q[2],
+           "cunnane: the round trip on the card is outside the quantile limits of the CPU float64 path")
+    del pp, back, cdf, xg
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3239,6 +3613,14 @@ def main() -> int:
         if sys.argv[1:2] == ["--pipeline"]:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 pipeline_phase(np.random.default_rng(SEED), card, torch.device("cuda", 0), tmp)
+            print(card)
+            return 0
+        if sys.argv[1:2] == ["--examples"]:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                for name in build.build_all():
+                    print(f"build: {name}")
+                cunnane_phase(card, torch.device("cuda", 0))
+                examples_phase(card, torch.device("cuda", 0), tmp)
             print(card)
             return 0
         if sys.argv[1:2] == ["--multi-device"]:
@@ -3354,6 +3736,10 @@ def main() -> int:
             mark("the utilities")
             multi_device_phase(rng, card, dev, tmp, os.path.join(tmp, "in.zarr"), exact_row_ms=g_rows[0][1])
             mark("the multi-device layer")
+            cunnane_phase(card, dev)
+            mark("the grouped Cunnane maps")
+            examples_phase(card, dev, tmp)
+            mark("the examples")
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

@@ -26,6 +26,8 @@ import time
 
 import numpy as np
 
+from .examples.utils import get_sample_grid  # the demo workload
+
 
 def load_grid(path):
     import pandas as pd
@@ -38,28 +40,6 @@ def load_grid(path):
     spatial = {f"s{i}": np.arange(n) for i, n in enumerate(data.shape[1:])}
     dims = ("time", *spatial.keys())
     return DataArray(data, dims, {"time": index, **spatial})
-
-
-def get_sample_grid(ny: int = 10, nx: int = 10, years: int = 10, seed: int = 0):
-    """A small (time, y, x) monthly grid pair (biased GCM, observations)
-    with an ocean strip, as xlite DataArrays: the demo workload (a copy of
-    ``get_sample_grid`` in the repository's ``examples/utils.py``)."""
-    import pandas as pd
-
-    from .xlite import DataArray
-
-    rng = np.random.default_rng(seed)
-    index = pd.date_range("1990-01-01", periods=years * 12, freq="MS")
-    seas = 10 * np.sin(2 * np.pi * (index.month.to_numpy() - 1) / 12)[:, None, None]
-    lat_grad = np.linspace(-3, 3, ny)[None, :, None]
-    gcm = 284 + seas + lat_grad + rng.normal(0, 2, (len(index), ny, nx)) + 1.5
-    obs = 283 + seas + lat_grad + rng.normal(0, 1.8, (len(index), ny, nx))
-    gcm[:, :, :2] = np.nan  # ocean strip
-    coords = {"time": index, "y": np.arange(ny), "x": np.arange(nx)}
-    return (
-        DataArray(gcm, ("time", "y", "x"), coords),
-        DataArray(obs, ("time", "y", "x"), coords),
-    )
 
 
 def demo_grids():

@@ -26,6 +26,7 @@ import torch
 
 from ..kernels.rank_map import COUNT_SORT_MAX_LEN, count_sort_segments, rank_map_segments
 from ..kernels.sort_rows import on_rows
+from ..ops.interp import interp_rows
 from ..ops.regression import ols_1d
 from ..utils.timeindex import PaddedGroups
 
@@ -34,6 +35,8 @@ __all__ = [
     "gather_groups",
     "scatter_groups",
     "cunnane_fit_padded",
+    "cunnane_transform_padded",
+    "cunnane_inverse_padded",
     "grouped_qm_fit",
     "grouped_qm_transform",
     "apply_ranked_flat",
@@ -300,6 +303,81 @@ def _tail_windows(counts: np.ndarray, L: int, n_endpoints: int):
     hi_cols = (start + j).astype(np.int64)  # last ne valid knots
     w_hi = ((start + j) < counts[:, None]).astype(np.float64)
     return ne, w_lo, hi_cols, w_hi
+
+
+def _cunnane_map_flat(
+    q_flat, table_x_flat, table_y_flat, groups_q: PaddedGroups, counts: np.ndarray,
+    L_table: int, extrapolate, n_endpoints: int,
+):
+    """Shared ragged map for transform (vals -> pp) and inverse (pp -> vals),
+    semantics of ``quantile.py:485-503`` / ``523-545``: K6 through
+    :func:`~..ops.interp.interp_rows` on every (cell, group) row, then the
+    OLS tails over the host tail windows.
+
+    ``q_flat``: (..., G*Lq) queries grouped per ``groups_q``;
+    ``table_*_flat``: (..., G*L_table) or (G*L_table,) monotone-per-group
+    tables; ``counts``: host (G,) valid knots per table group.
+    """
+    dtype, dev = q_flat.dtype, q_flat.device
+    lead = q_flat.shape[:-1]
+    G, Lq = groups_q.indices.shape
+    Lt = L_table
+
+    tx = torch.broadcast_to(table_x_flat, (*lead, G * Lt)).reshape(*lead, G, Lt)
+    ty = torch.broadcast_to(table_y_flat, (*lead, G * Lt)).reshape(*lead, G, Lt)
+    q3 = q_flat.reshape(*lead, G, Lq)
+    res = interp_rows(tx, ty, q3)  # (..., G, Lq)
+
+    if extrapolate in ("min", "max", "both"):
+        ne, w_lo, hi_cols, w_hi = _tail_windows(counts, Lt, n_endpoints)
+        g_idx = torch.arange(G, device=dev)
+        last = torch.as_tensor(np.maximum(counts - 1, 0), dtype=torch.long, device=dev)
+        if extrapolate in ("min", "both"):
+            lo_s, lo_i = ols_1d(tx[..., :ne], ty[..., :ne], torch.as_tensor(w_lo, dtype=dtype, device=dev))
+            res = torch.where(q3 < tx[..., :, 0:1], lo_i[..., None] + lo_s[..., None] * q3, res)
+        if extrapolate in ("max", "both"):
+            cols = torch.as_tensor(hi_cols, device=dev)
+            hx = tx[..., g_idx[:, None], cols]  # (..., G, ne)
+            hy = ty[..., g_idx[:, None], cols]
+            hi_s, hi_i = ols_1d(hx, hy, torch.as_tensor(w_hi, dtype=dtype, device=dev))
+            hi_edge = tx[..., g_idx, last][..., None]
+            res = torch.where(q3 > hi_edge, hi_i[..., None] + hi_s[..., None] * q3, res)
+    return res.reshape(*lead, G * Lq)
+
+
+def cunnane_transform_padded(
+    cdf: GroupedCdf, xg_flat, groups_q: PaddedGroups, counts: np.ndarray,
+    extrapolate="both", n_endpoints: int = 10,
+):
+    """values -> plotting positions per group; ``xg_flat``: (..., G*Lq)
+    grouped per ``groups_q`` against the cdf's G groups (row-aligned)."""
+    Lt = cdf.vals.shape[-1] // groups_q.n_groups
+    return _cunnane_map_flat(
+        xg_flat, cdf.vals, cdf.pp, groups_q, counts, Lt, extrapolate, n_endpoints
+    )
+
+
+def cunnane_inverse_padded(
+    cdf: GroupedCdf, qg_flat, groups_q: PaddedGroups, counts: np.ndarray,
+    valid_flat: np.ndarray, extrapolate="both", n_endpoints: int = 10,
+):
+    """plotting positions -> values per group; ``qg_flat``: (..., G*Lq).
+
+    Builds the (pp -> vals) direction tables: pp pads to +inf, vals pads to
+    each group's last valid value (monotone, zero slope into the pad).
+    """
+    G = groups_q.n_groups
+    Lt = cdf.vals.shape[-1] // G
+    lead = cdf.vals.shape[:-1]
+    valid = torch.as_tensor(np.asarray(valid_flat, dtype=bool), device=cdf.vals.device)
+    pp_tab = torch.where(valid, cdf.pp, _INF)
+    valid2 = valid.reshape(G, Lt)
+    vals3 = cdf.vals.reshape(*lead, G, Lt)
+    v_last = torch.where(valid2, vals3, -_INF).amax(dim=-1, keepdim=True)
+    vals_tab = torch.where(valid2, vals3, v_last).reshape(*lead, G * Lt)
+    return _cunnane_map_flat(
+        qg_flat, pp_tab, vals_tab, groups_q, counts, Lt, extrapolate, n_endpoints
+    )
 
 
 @functools.lru_cache(maxsize=64)

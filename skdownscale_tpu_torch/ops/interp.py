@@ -22,7 +22,7 @@ import torch
 
 from ..kernels.interp import batched_interp
 
-__all__ = ["interp", "interp_rows", "interp_rows_multi", "interp_padded", "pad_table"]
+__all__ = ["interp", "interp_ramp", "interp_rows", "interp_rows_multi", "interp_padded", "pad_table"]
 
 
 def _as_rows(t: torch.Tensor, lead: tuple, n: int) -> torch.Tensor:
@@ -54,6 +54,14 @@ def interp_rows_multi(xp, fps, q):
     """Like :func:`interp_rows` but mapping the same queries through several
     value tables that share one knot vector."""
     return [interp_rows(xp, fp, q) for fp in fps]
+
+
+def interp_ramp(x, xp, fp):
+    """``np.interp`` of ``x`` (any shape) on one table ``xp``, ``fp`` (L,),
+    clamped ends, in the semantics K6 follows (ties to the last tied knot,
+    the value from the nearer knot, ``+inf``-padded tails clamp to the last
+    valid knot, F7): :func:`interp` without fill values."""
+    return interp(x, xp, fp)
 
 
 def interp(x, xp, fp, left=None, right=None):

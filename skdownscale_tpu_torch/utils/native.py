@@ -20,6 +20,7 @@ import threading
 import numpy as np
 
 __all__ = [
+    "available",
     "pack_compact",
     "unpack_scatter",
     "valid_mask",
@@ -92,6 +93,11 @@ def _load():
         lib.gridpack_valid_mask_f64.restype = i64
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether ``native/libgridpack.so`` loads (built first if missing)."""
+    return _load() is not None
 
 
 def pack_compact(src: np.ndarray, cell_ids: np.ndarray) -> np.ndarray:

@@ -40,8 +40,9 @@ def test_import_has_no_jax():
     """Every submodule of the port imports, the z-score, ARRM, grouping,
     global-model and device-layer modules (the meshes, multi-process
     feeding, time sharding and the dry run among them), the store layer,
-    the pipeline, the utilities and the CLI among them, and none of them
-    pulls in jax or the JAX package."""
+    the pipeline, the utilities, the CLI, the migration shim and the
+    examples among them, and none of them pulls in jax or the JAX package
+    (importing an example runs nothing)."""
     code = (
         "import importlib, pkgutil, sys, skdownscale_tpu_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, 'skdownscale_tpu_torch.')]\n"
@@ -53,7 +54,11 @@ def test_import_has_no_jax():
         " 'global_models.linear', 'global_models.quantile', 'global_models.downscaler',"
         " 'utils.zarrlite', 'utils.profiling', 'utils.checkpoint', 'utils.metrics',"
         " 'utils.disagg', 'parallel.zarr_io', 'parallel.pipeline', 'parallel.multihost',"
-        " 'parallel.timeshard', 'parallel.dryrun', 'cli']\n"
+        " 'parallel.timeshard', 'parallel.dryrun', 'cli', 'pointwise_models', 'examples.utils',"
+        " 'examples.bcsd_example', 'examples.gard_example', 'examples.mbcn_example',"
+        " 'examples.global_models_example', 'examples.sharded_grid', 'examples.full_bcsd_pipeline',"
+        " 'examples.continental_bcsd', 'examples.tutorial', 'examples.make_tutorial_notebook',"
+        " 'examples.make_analog_notebook']\n"
         "missing = [n for n in need if 'skdownscale_tpu_torch.' + n not in names]\n"
         "print(len(names), bad, missing)\n"
         "raise SystemExit(1 if bad or missing or len(names) < 56 else 0)\n"

@@ -38,7 +38,7 @@ from skdownscale_tpu.ops.ranks import self_quantiles as j_self_quantiles
 # which shadows the module of that name as an attribute
 ji = importlib.import_module("skdownscale_tpu.ops.interp")
 
-import skdownscale_tpu_torch.ops.interp as pi
+pi = importlib.import_module("skdownscale_tpu_torch.ops.interp")  # the port's too
 from skdownscale_tpu_torch.kernels import LAUNCHES
 from skdownscale_tpu_torch.kernels.interp import batched_interp, batched_interp_plain
 from skdownscale_tpu_torch.ops.ranks import self_quantiles
@@ -279,6 +279,20 @@ def test_interp_and_interp_padded_match_jax(rng, left, right):
         pi.interp_padded(_t(x), pxp, pfp, 29).numpy()[ok], np.interp(x[ok], xp[:29], fp[:29]),
         rtol=1e-12, atol=1e-12,
     )
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_interp_ramp_matches_jax(rng, pad):
+    """``ops.interp_ramp``, the one-row form of K6's plain version, against
+    the JAX package's ``interp_ramp`` on a table with ties, sentinels and
+    (``pad``) a +inf-padded tail, queries of any shape."""
+    xp, fp = _tables(rng, 1, 40, pad=pad)
+    xp, fp = xp[0], fp[0]
+    x = _queries(rng, xp[None], 64)[0].reshape(4, 16)
+    want = np.asarray(ji.interp_ramp(jnp.asarray(x), jnp.asarray(xp), jnp.asarray(fp)))
+    got = pi.interp_ramp(_t(x), _t(xp), _t(fp))
+    assert got.shape == x.shape
+    _same(got.numpy(), want)
 
 
 @pytest.mark.parametrize("quantize", [False, True])

@@ -14,6 +14,8 @@ kernels (K7, K8) against the JAX package on the CPU.
   Pallas programs are reused.
 """
 
+import importlib
+
 import numpy as np
 import numpy.testing as npt
 import pytest
@@ -28,7 +30,7 @@ from skdownscale_tpu.ops.knn import knn as jax_knn
 from skdownscale_tpu.ops.pallas.knn_kernel import pure_analog_stats as pallas_pure_analog_stats
 
 import skdownscale_tpu_torch.models.gard as pg
-import skdownscale_tpu_torch.ops.knn as pknn
+pknn = importlib.import_module("skdownscale_tpu_torch.ops.knn")  # ops.knn is the function
 import skdownscale_tpu_torch.ops.regression as pr
 from skdownscale_tpu_torch.kernels import knn as KN
 

@@ -97,9 +97,11 @@ with a non-zero exit at the first failure, it:
     windows (512 cells x 366 windows x 620) and adversarial rows (NaN
     payloads including the bits 0x7fffffff, +-0, +-inf, heavy ties,
     all-equal rows, L = 1, 7, 37, 304, 620, 1,025, 3,650 and K9_MAX_LEN,
-    with row counts that leave a block of four rows part full), and times
-    each form beside its bound, its plain version and one ``torch.sort``
-    call;
+    with row counts that leave a block of four rows part full, and on the
+    long route 8,193, 10,957 and 55,152) and 30-year daily rows (6,144 x
+    10,957), and times each form beside its bound, its plain version, one
+    PyTorch call and ``torch.sort(keys, stable=True)``, with each shape's
+    sort and unsort routes;
 16. config 8, this slice's main path: ``mbcn_grid`` on three 3-variable
     daily Datasets (obs, hist, fut; 3,650 days each; data as
     bench.py:731-736) of 2,048 cells (32 x 64, about 5% NaN cells), 20
@@ -112,7 +114,10 @@ with a non-zero exit at the first failure, it:
 17. config 8 monthly (``group="month"``) on the same grid: K9 at
     month-length rows;
 18. config 8b: 16,384 valid cells (128 x 136, 1,024 NaN cells) in
-    2,048-cell chunks, one timed run of the grid runner;
+    2,048-cell chunks, one timed run of the grid runner; then config 8 at
+    30 years (10,957 days, MBCn's usual calibration period, K9's long
+    route): 22 launches of each K9 form and no plain version, 16 cells
+    against the CPU float64 path by config 8's limits, wall and device time;
 19. config 7 (BASELINE config 7): ``PointWiseDownscaler(ZScoreRegressor(
     window_width=31))`` fit and predict on 65,536 cells (256 x 256, about
     5% NaN cells) x 7,305 days from 1990-01-01 (data as bench.py:452-471;
@@ -134,8 +139,10 @@ with a non-zero exit at the first failure, it:
     256, about 5% NaN cells) x 3,650 days: K6 launched twice by the ladder
     fit and once by ``transform``, the ladders and coefficients against the
     CPU float64 path on the whole grid and the outputs on 512 cells, and K6
-    at its two new shapes (one row of 2.4e8 knots; 65,536 rows on one
-    shared 2,048-knot table) bitwise against its plain version and timed;
+    at its two shapes (one row of 2.4e8 knots on the long-row route; 65,536
+    rows on one shared 2,048-knot table) and on three rows of 1,000,003
+    knots with NaN knots (long-row route) bitwise against its plain version
+    and timed, with each launch's route;
 23. the pipeline: writes gcm and obs of 512 x 512 = 262,144 cells x 480
     months (about 5% NaN cells) as a zarr v3 blosc store with the port's
     zarrlite, then runs ``run_pointwise_pipeline(..., device="cuda")`` with
@@ -197,14 +204,17 @@ same function (where there is one); the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --trials [source ...]`` runs only the design
-trials of K5, K6 and K1 / K2 (or of the named sources: ``slide_sort``,
-``interp``, ``rank_map``): each trial switch of ``csrc/slide_sort.cu``,
-``csrc/interp.cu`` and ``csrc/rank_map.cu`` (``TRIALS``) is built as a
-variant, held bitwise against the default build, and timed beside it in
-turns at config 5 (K5), at config 8's fut block and config 9b's two calls
-(K6), and at config 2's shape and config 5's K2 shape (K1, K2), config
-9a's rows and 20-year daily rows (K2), with each build's launch shape,
-registers and spills.
+trials of K5, K6, K1 / K2 and K9 (or of the named sources: ``slide_sort``,
+``interp``, ``rank_map``, ``sort_rows``): each trial switch of
+``csrc/slide_sort.cu``, ``csrc/interp.cu``, ``csrc/rank_map.cu`` and
+``csrc/sort_rows.cu`` (``TRIALS``) is built as a variant, held bitwise
+against the default build, and timed beside it in turns at config 5 (K5),
+at config 8's fut block, config 9b's two calls, rows shaped as config G's
+ladder and mesh G's sketch row and three long rows with NaN knots (K6), at
+config 2's shape and config 5's K2 shape (K1, K2), config 9a's rows and
+20-year daily rows (K2), and at the monthly, dense daily and config 8 rows
+(K9's unsort, ``scatter_`` beside) and 30-year daily rows (K9's sort with
+positions), with each build's launch shape, registers and spills.
 
 ``python3 chip_smoke.py --pipeline`` runs only the pipeline phase (23),
 to time a change of ``parallel/pipeline.py`` against another tree's in
@@ -286,6 +296,9 @@ TOL_GARD = (1e-3, 1e-3, 1e-3)
 M_CELLS, M_LAT, M_LON, M_T, M_D, M_ROT = 2_048, 32, 64, 3_650, 3, 20
 M_REF_CELLS = 128
 MB_LAT, MB_LON, MB_VALID, MB_CHUNK = 128, 136, 16_384, 2_048
+# config 8 at 30 years: MBCn's usual calibration period (1981-2010, 10,957
+# days), K9's long route; M30_REF_CELLS cells against the CPU float64 path
+M30_T, M30_REF_CELLS = 10_957, 16
 # launches of each K9 form in one mbcn_correct: one a rotation (the rotated
 # obs sort, the hist sort with positions, the unsort of the mapped values)
 # and one in each of the two closing reorders; the QDM margins sort with
@@ -360,6 +373,7 @@ TOL_FALLBACK = (2e-3, 5.0)  # p99.9, max |diff| in K
 # error ~1e-6, so coefficients within 1e-4 relative, intercepts and
 # outputs within 1e-2 K.
 G_TIME, G_Q, G_REF_CELLS_OUT = 3_650, 2_048, 512
+G_CELLS_LADDER = 239_206_400  # one ladder row: the valid samples of config G's grid
 TOL_G_LADDER = 1e-2
 TOL_G = (2e-3, 1e-2)
 TOL_G_LINEAR = (1e-4, 1e-2, 1e-2)
@@ -589,6 +603,24 @@ def cuda_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def queued_ms(fn, iters=20):
+    """The card's time for one ``fn``, with every launch queued behind a
+    spin kernel (``torch.cuda._sleep``, about 10 ms) before the first
+    event, so that the host's rate of issue does not set it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -937,7 +969,7 @@ def config5_detrend_phase(X, Y, nan_cells, card, dev):
     predict gathers and sorts each chunk's raw 620-day fit windows (K9,
     above K1's 256).  Fit+predict through ``PointWiseDownscaler`` on the
     route the port takes (K9) and on the one it took before K9 (every window
-    above 256 to the plain version: ``K9_MAX_LEN`` set to K1's limit),
+    above 256 to K9's plain version, patched in for the kernel's wrapper),
     alternating K9, plain, plain, K9 after a warm-up of each; the outputs
     bitwise equal, NaN cells NaN; then the predict core's device time on
     each route by CUDA events."""
@@ -949,13 +981,12 @@ def config5_detrend_phase(X, Y, nan_cells, card, dev):
     import skdownscale_tpu_torch as sdt
     from skdownscale_tpu_torch.kernels import LAUNCHES
     from skdownscale_tpu_torch.kernels import sort_rows as S
-    from skdownscale_tpu_torch.kernels.rank_map import COUNT_SORT_MAX_LEN
     from skdownscale_tpu_torch.models import bcsd as B
     from skdownscale_tpu_torch.models.batched import GROUP_CHUNK
 
     label = "config 5 detrend"
     routes = {"K9": contextlib.nullcontext,
-              "plain": lambda: mock.patch.object(S, "K9_MAX_LEN", COUNT_SORT_MAX_LEN)}
+              "plain": lambda: mock.patch.object(S, "sort_rows", S.sort_rows_plain)}
 
     def model():
         return sdt.BcsdTemperature(time_grouper="daily_nasa-nex", return_anoms=False,
@@ -1212,7 +1243,7 @@ def interp_kernel_phase(dev):
         print(f"kernel batched_interp {name} ({B} rows, L={L}, Q={Q}, shared {shared}): bitwise equal "
               f"to plain, NaN out {int(torch.isnan(got).sum())}, kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB), "
-              f"{n_bytes / ms / 1e9:.3f} TB/s moved; {'staged' if geo['staged'] else 'device memory'}, "
+              f"{n_bytes / ms / 1e9:.3f} TB/s moved; route {geo['route']}, "
               f"{geo['threads']} threads a block, {geo['smem_bytes']} B shared a block, "
               f"{geo['blocks_per_sm']} resident blocks an SM, grid {geo['grid']}")
         if name == "config 9b call 1":  # the main path's first call goes in the JSON line
@@ -1220,6 +1251,34 @@ def interp_kernel_phase(dev):
                                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         del xp, fp, q, got
     return results
+
+
+def ladder_row(dev, n):
+    """K6's arguments shaped as a pooled ladder: one row of ``n`` knots
+    (plotting positions in (0, 1), float32 ties included) with monotone
+    values, and the Q = G_Q ladder positions as queries."""
+    import torch
+
+    sp = (torch.arange(n, device=dev, dtype=torch.float64) + 0.5).div_(n).float()[None]
+    vals = (250.0 + 60.0 * sp.double() ** 1.5).float()
+    pp = ((torch.arange(G_Q, device=dev, dtype=torch.float64) + 0.6) / (G_Q + 0.2)).float()[None]
+    return sp, vals, pp.contiguous()
+
+
+def long_nan_rows(g, dev, L=1_000_003, Q=G_Q):
+    """Three rows of ``L`` sorted knots and values on the long-row route:
+    a NaN knot of xp in the row's last scan chunk, a NaN value in fp only,
+    and a clean row; queries inside and outside, knot hits, NaN, +-inf."""
+    import torch
+
+    xp = torch.sort(torch.randn((3, L), generator=g, device=dev) * 5.0, dim=1).values
+    fp = torch.sort(torch.rand((3, L), generator=g, device=dev), dim=1).values
+    xp[0, L - 2] = float("nan")
+    fp[1, L // 2] = float("nan")
+    q = torch.randn((3, Q), generator=g, device=dev) * 6.0
+    q[:, :64] = xp[2, torch.randint(0, L, (64,), generator=g, device=dev)]
+    q[:, 64], q[:, 65], q[:, 66] = float("nan"), float("inf"), float("-inf")
+    return xp.contiguous(), fp.contiguous(), q.contiguous()
 
 
 def ptxas_of(log, kernel):
@@ -1239,9 +1298,9 @@ def ptxas_of(log, kernel):
     return f"no ptxas entry for {kernel}"
 
 
-# the trial switches of csrc/slide_sort.cu, csrc/interp.cu and
-# csrc/rank_map.cu, each built as a variant and timed beside the default
-# build by ``--trials``
+# the trial switches of csrc/slide_sort.cu, csrc/interp.cu,
+# csrc/rank_map.cu and csrc/sort_rows.cu, each built as a variant and timed
+# beside the default build by ``--trials``
 TRIALS = {
     "slide_sort": (("8 cells a block", ("SDT_K5_CELLS_PER_BLOCK=8",)),
                    ("buckets loaded a step ahead", ("SDT_K5_PREFETCH=1",)),
@@ -1250,7 +1309,15 @@ TRIALS = {
     "interp": (("staged wherever it fits", ("SDT_K6_ROUTE=1",)),
                ("device memory at every shape", ("SDT_K6_ROUTE=2",)),
                ("staged, 256 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=256")),
-               ("staged, 512 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=512"))),
+               ("staged, 512 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=512")),
+               ("the long-row route from 32,768 knots", ("SDT_K6_LONG_MIN=32768",)),
+               ("no long-row route", ("SDT_K6_LONG_MIN=0",))),
+    "sort_rows": (("the unsort a block a row", ("SDT_K9_UNSORT_ROUTE=1",)),
+                  ("the unsort a warp a row up to 1,024", ("SDT_K9_UNSORT_ROUTE=2",)),
+                  ("the unsort a straight scatter", ("SDT_K9_UNSORT_ROUTE=3",)),
+                  ("the long route at 8 items a lane", ("SDT_K9_LONG_ITEMS=8",)),
+                  ("the long route at 24 items a lane", ("SDT_K9_LONG_ITEMS=24",)),
+                  ("the long route at 32 items a lane", ("SDT_K9_LONG_ITEMS=32",))),
     "rank_map": (("one key a thread on the packed route", ("SDT_RANK_PACKED_ITEMS=1",)),
                  ("two keys a thread on the packed route", ("SDT_RANK_PACKED_ITEMS=2",)),
                  ("512 threads a packed block", ("SDT_RANK_PACKED_THREADS=512",)),
@@ -1269,11 +1336,14 @@ TRIALS = {
 def trials(dev, sources):
     """``--trials [source ...]``: every variant of ``TRIALS`` (of the named
     sources, or all) against the default build of its source, K5 at config
-    5, K6 at config 8's fut block and config 9b's two calls, K1 and K2 at
-    config 2's and config 5's K2 shape, K2 at config 9a's rows and at
-    20-year daily rows (the block route): outputs
-    bitwise equal to the default's, CUDA-event times in turns (default,
-    each variant, default again) and each launch's shape."""
+    5, K6 at config 8's fut block, config 9b's two calls, a row shaped as
+    config G's pooled ladder, one as mesh G's merged sketch row and three
+    long rows with NaN knots, K1 and K2 at config 2's and config 5's K2
+    shape, K2 at config 9a's rows and at 20-year daily rows (the block
+    route), K9's unsort at the monthly, dense daily and config 8 rows (with
+    ``scatter_`` timed beside) and its sort with positions at 30 years of
+    days: outputs bitwise equal to the default's, CUDA-event times in turns
+    (default, each variant, default again) and each launch's shape."""
     import concurrent.futures
 
     import torch
@@ -1282,6 +1352,7 @@ def trials(dev, sources):
     from skdownscale_tpu_torch.kernels import interp as I
     from skdownscale_tpu_torch.kernels import rank_map as K
     from skdownscale_tpu_torch.kernels import slide_sort as S
+    from skdownscale_tpu_torch.kernels import sort_rows as SR
     from skdownscale_tpu_torch.models.batched import GROUP_CHUNK
     from skdownscale_tpu_torch.models.slide import build_slide_plan
     from skdownscale_tpu_torch.utils.timeindex import TimeIndex, padded_doy_groups
@@ -1297,7 +1368,7 @@ def trials(dev, sources):
         builds = {key: f.result() for key, f in futures.items()}
     libs = {key: ctypes.CDLL(res.path) for key, res in builds.items()}
     print(f"trials: {len(jobs)} builds in {time.perf_counter() - t0:.2f} s")
-    modules = {"slide_sort": S, "interp": I, "rank_map": K}
+    modules = {"slide_sort": S, "interp": I, "rank_map": K, "sort_rows": SR}
     for src, label, _ in jobs:
         modules[src].declare(libs[(src, label)])
 
@@ -1336,15 +1407,50 @@ def trials(dev, sources):
 
     if "interp" in sources:
         g = torch.Generator(device=dev).manual_seed(SEED)
-        cases = [("config 8 fut block", mbcn_interp_inputs(dev)),
-                 ("config 9b call 1", interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 1)),
-                 ("config 9b call 2", interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 2))]
-        for name, (xp, fp, q) in cases:
+        cases = [("config 8 fut block", lambda: mbcn_interp_inputs(dev)),
+                 ("config 9b call 1", lambda: interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 1)),
+                 ("config 9b call 2", lambda: interp_tables(g, dev, Q_CELLS, Q_FIT, Q_PRED, 2)),
+                 ("config G ladder shape", lambda: ladder_row(dev, G_CELLS_LADDER)),
+                 ("mesh G merged sketch row shape", lambda: ladder_row(dev, 4 * 8_192)),
+                 ("long rows with NaN knots", lambda: long_nan_rows(g, dev))]
+        kernels = {"staged": "batched_interp_staged_kernel", "device memory": "batched_interp_global_kernel",
+                   "long row": "long_row_search_kernel"}
+        for name, make in cases:
+            xp, fp, q = make()
             print(f"trials K6 {name} ({q.shape[0]} rows, L={xp.shape[1]}, Q={q.shape[1]})")
             turns("interp", lambda lib: I.launch(lib, xp, fp, q),
                   lambda got, want, label: bitwise_err(got, want, f"K6 {name} trial {label}"),
-                  lambda lib: str(I.launch_geometry(xp, fp, q, lib)), "batched_interp_staged_kernel")
-        del cases
+                  lambda lib: str(I.launch_geometry(xp, fp, q, lib)),
+                  lambda label: kernels[I.launch_geometry(xp, fp, q, libs[("interp", label)])["route"]])
+            del xp, fp, q
+
+    if "sort_rows" in sources:
+        unsort_kernels = {"warp": "unsort_rows_warp_kernel", "block": "unsort_rows_kernel",
+                          "scatter": "unsort_rows_scatter_kernel"}
+        for name, B, L in (("monthly", M_CELLS * M_D, 304), ("dense daily windows", 512 * 366, 620),
+                           ("config 8", M_CELLS * M_D, M_T)):
+            x = torch.from_numpy(k9_rows(rng, B, L, "gauss")).to(dev)
+            v = torch.from_numpy(rng.standard_normal((B, L), dtype=np.float32)).to(dev)
+            _, pos = SR.launch_sort(libs[("sort_rows", "default")], x, True)
+            pos64 = pos.long()
+            scatter_ms = cuda_ms(lambda: torch.empty_like(v).scatter_(-1, pos64, v), iters=10, warmup=2)
+            print(f"trials K9 unsort {name} ({B} x {L}): scatter_ (one PyTorch call) {scatter_ms:.4f} ms")
+            turns("sort_rows", lambda lib: SR.launch_unsort(lib, v, pos),
+                  lambda got, want, label: bitwise_err(got, want, f"K9 unsort {name} trial {label}"),
+                  lambda lib: f"unsort route {SR.unsort_route(L, lib)}",
+                  lambda label: unsort_kernels[SR.unsort_route(L, libs[("sort_rows", label)])])
+            del x, v, pos, pos64
+        B, L = M_CELLS * M_D, M30_T
+        x = torch.from_numpy(k9_rows(rng, B, L, "gauss")).to(dev)
+
+        def same(got, want, label):
+            bitwise_err(got[0], want[0], f"K9 30-year daily trial {label}")
+            _check(torch.equal(got[1], want[1]), f"K9 30-year daily trial {label}: positions differ")
+
+        print(f"trials K9 sort with positions 30-year daily ({B} x {L})")
+        turns("sort_rows", lambda lib: SR.launch_sort(lib, x, True), same,
+              lambda lib: "long route", "sort_rows_long_kernelILb1E")
+        del x
 
     if "rank_map" in sources:
         c5_rows, c5_g, c5_l = config5_k2_shape()
@@ -1897,6 +2003,11 @@ K9_CASES = [
     ("adversarial 7", 8_192, 7, "adversarial", False),
     ("adversarial 1", 4_096, 1, "adversarial", False),
     ("adversarial max", 64, None, "adversarial", False),  # L = K9_MAX_LEN
+    # the long route: one past K9_MAX_LEN, 30 years of days, 1950-2100
+    ("adversarial 8193", 512, 8_193, "adversarial", False),
+    ("adversarial 10957", 512, M30_T, "adversarial", False),
+    ("adversarial 55152", 64, 55_152, "adversarial", False),
+    ("30-year daily", M_CELLS * M_D, M30_T, "gauss", True),
 ]
 
 
@@ -1928,7 +2039,8 @@ def sort_kernel_phase(rng, dev):
         _check(torch.equal(back.view(torch.int32), x.view(torch.int32)),
                f"K9 {name}: unsort of the sorted rows is not the input")
         print(f"kernel K9 {name} ({B} x {L}, {kind}): the three forms bitwise equal to their plain "
-              f"versions, positions equal, round trip exact")
+              f"versions, positions equal, round trip exact; sort route "
+              f"{'long' if L > S.K9_MAX_LEN else 'shared memory'}, unsort route {S.unsort_route(L)}")
         if timed:
             keys = to_ordered_int(x)
             pos = p2.long()
@@ -1946,12 +2058,17 @@ def sort_kernel_phase(rng, dev):
                 ms = cuda_ms(kern, iters=10, warmup=2)
                 plain_ms = cuda_ms(plain, iters=10, warmup=2)
                 lib = stable_ms if one_call is None else cuda_ms(one_call, iters=10, warmup=2)
+                # the card's own time, launches queued: at short rows the
+                # host's issue of a call can take as long as the kernel
+                q_ms = queued_ms(kern)
+                q_lib = queued_ms(one_call or (lambda: torch.sort(keys, dim=-1, stable=True)))
                 # compulsory bytes; a sort compares each element log2 L times
                 ops = 0 if form == "unsort_rows" else n * np.log2(max(L, 2))
                 b_ms, b_by = bound(bytes_per * n, ops)
                 print(f"kernel {form} {name} ({B} x {L}): kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
                       f"({b_by}), plain {plain_ms:.4f} ms, one PyTorch call {lib:.4f} ms, "
-                      f"torch.sort(keys, stable=True) {stable_ms:.4f} ms, {ms / b_ms:.1f}x its bound")
+                      f"torch.sort(keys, stable=True) {stable_ms:.4f} ms, {ms / b_ms:.1f}x its bound; "
+                      f"launches queued: kernel {q_ms:.4f} ms, one PyTorch call {q_lib:.4f} ms")
                 if name == "config 8":  # the main path's shape goes in the JSON line
                     results[form] = {"max_abs_err": errs[form], "ms": ms, "plain_ms": plain_ms,
                                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
@@ -1959,12 +2076,12 @@ def sort_kernel_phase(rng, dev):
     return results
 
 
-def mbcn_datasets(rng, n_lat, n_lon, nan_cells):
+def mbcn_datasets(rng, n_lat, n_lon, nan_cells, T=M_T):
     """Config 8's three daily Datasets (obs, hist, fut) of M_D variables
     ``v0..``, float32 on (time, lat, lon), as bench.py:731-736: obs ~ N(0,
     S) with unit variances and correlation 0.6, hist ~ 1.4 N(0, 1) + 1.0,
     fut ~ 1.4 N(0, 1) + 1.3; obs and hist from 1990-01-01, fut from
-    2050-01-01, 3,650 days each; ``nan_cells`` NaN in all three."""
+    2050-01-01, ``T`` days each (3,650); ``nan_cells`` NaN in all three."""
     import pandas as pd
 
     from skdownscale_tpu_torch.xlite import DataArray, Dataset
@@ -1975,12 +2092,12 @@ def mbcn_datasets(rng, n_lat, n_lon, nan_cells):
     dims = ("time", "lat", "lon")
 
     def ds(start, scale, loc, correlated):
-        a = rng.standard_normal((M_T, C, M_D), dtype=np.float32)
+        a = rng.standard_normal((T, C, M_D), dtype=np.float32)
         a = (a.reshape(-1, M_D) @ chol_t).reshape(a.shape) if correlated else a * scale + loc
         a[:, nan_cells] = np.nan
-        coords = {"time": pd.date_range(start, periods=M_T, freq="D"),
+        coords = {"time": pd.date_range(start, periods=T, freq="D"),
                   "lat": np.arange(n_lat), "lon": np.arange(n_lon)}
-        return Dataset({f"v{j}": DataArray(np.ascontiguousarray(a[..., j]).reshape(M_T, n_lat, n_lon),
+        return Dataset({f"v{j}": DataArray(np.ascontiguousarray(a[..., j]).reshape(T, n_lat, n_lon),
                                            dims, coords) for j in range(M_D)})
 
     return ds("1990-01-01", 1.0, 0.0, True), ds("1990-01-01", 1.4, 1.0, False), ds("2050-01-01", 1.4, 1.3, False)
@@ -2272,6 +2389,95 @@ def config8b_phase(rng, card, dev):
           f"memory {peak / 2**30:.3f} GiB; launches {launches}; card {card}")
 
 
+def mbcn_30y_phase(rng, card, dev):
+    """Config 8 at 30 years: ``mbcn_grid`` on M_CELLS cells x M_D variables
+    x M30_T days (K9's long route), M_ROT rotations, one warm-up, then one
+    timed run with the launch counts set to 0 just before and read just
+    after and K9's plain versions made to fail: K9_PER_CORRECT launches of
+    each form; NaN cells NaN, valid cells finite; on M30_REF_CELLS cells the
+    margins (TOL_Q), MBCN_SHORT_ROT rotations (TOL_MBCN_SHORT) and the
+    grid's output (TOL_MBCN_FULL) against the CPU float64 path."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+    from skdownscale_tpu_torch.models import mbc as PM
+
+    label = "config 8 at 30 years"
+    nan_cells = rng.random(M_CELLS) < NAN_CELL_SHARE
+    Y, XH, XF = mbcn_datasets(rng, M_LAT, M_LON, nan_cells, T=M30_T)
+    print(f"{label}: {M_D} variables, {M30_T} days obs / hist / fut, {M_CELLS} cells float32, "
+          f"{int(nan_cells.sum())} NaN cells, {M_ROT} rotations")
+
+    def run():
+        return PM.mbcn_grid(Y, XH, XF, n_iterations=M_ROT, device=dev)
+
+    def plain_ran(*a, **k):
+        raise SmokeFailure(f"{label}: a plain version of K9 ran on the card")
+
+    run()  # warm-up
+    with contextlib.ExitStack() as stack:
+        for name in ("sort_rows_plain", "sort_rows_with_positions_plain", "unsort_rows_plain"):
+            stack.enter_context(mock.patch.object(S, name, plain_ran))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        oh, of = run()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for form in K9_FORMS:
+        _check(launches.get(form, 0) == K9_PER_CORRECT,
+               f"{label}: {form} launched {launches.get(form, 0)} times, the code gives {K9_PER_CORRECT}")
+    variables = list(Y.data_vars)
+    out_h, out_f = (np.stack([ds[v].values.reshape(M30_T, -1) for v in variables], axis=-1).transpose(1, 0, 2)
+                    for ds in (oh, of))
+    for name, o in (("hist", out_h), ("fut", out_f)):
+        _check(np.isnan(o[nan_cells]).all() and np.isfinite(o[~nan_cells]).all(),
+               f"{label}: NaN cells or valid cells of the {name} output came out wrong")
+    packs = [PM.pack_dataset(ds, variables)[0] for ds in (Y, XH, XF)]
+    ref = np.sort(rng.choice(np.nonzero(~nan_cells)[0], M30_REF_CELLS, replace=False))
+    blocks = [PM.to_device(p[ref], dev) for p in packs]
+    ref64 = [torch.from_numpy(p[ref].astype(np.float64)) for p in packs]
+    kinds = ("difference",) * M_D
+    mh, mf = PM.mbcn_margins(*blocks, kinds=kinds)
+    wh, wf = PM.mbcn_margins(*ref64, kinds=kinds)
+    d = np.concatenate([np.abs(mh.double().cpu().numpy() - wh.numpy()).ravel(),
+                        np.abs(mf.double().cpu().numpy() - wf.numpy()).ravel()])
+    p999, share, dmax = float(np.quantile(d, 0.999)), float(np.mean(d > 1e-3)), float(d.max())
+    _check(p999 <= TOL_Q[0] and share <= TOL_Q[1] and dmax <= TOL_Q[2],
+           f"{label}: the card's QDM margins are outside the quantile family's tolerance")
+    rots = PM.mbcn_rotations(M_D, M_ROT, 0)
+
+    def correct(y, xh, xf, r):
+        return PM.mbcn_correct(y, xh, xf, r, kinds=kinds)
+
+    drift, wants = mbcn_depth_drift(correct, blocks, ref64, rots, (MBCN_SHORT_ROT, M_ROT))
+    full = _worst(rank_drift(out_h[ref].astype(np.float64), wants[M_ROT][0]),
+                  rank_drift(out_f[ref].astype(np.float64), wants[M_ROT][1]))
+    print(f"{label}: {M30_REF_CELLS} cells vs CPU float64: margins p99.9 |diff| {p999:.6g}, max {dmax:.6g} "
+          f"(limits {TOL_Q[0]:g}, {TOL_Q[2]:g}); after {MBCN_SHORT_ROT} rotations share of time steps with "
+          f"another rank {drift[MBCN_SHORT_ROT][0]:.6g}, p99.9 |diff| {drift[MBCN_SHORT_ROT][1]:.6g} (limits "
+          f"{TOL_MBCN_SHORT[0]:g}, {TOL_MBCN_SHORT[1]:g}); the grid's output after {M_ROT}: min Spearman "
+          f"{full[2]:.8f}, max |correlation difference| {full[3]:.6g} (limits {TOL_MBCN_FULL[None][0]:g}, "
+          f"{TOL_MBCN_FULL[None][1]:g})")
+    _check(mbcn_within(drift[MBCN_SHORT_ROT], MBCN_SHORT_ROT, None),
+           f"{label}: after {MBCN_SHORT_ROT} rotations the card is outside the stated tolerance")
+    _check(mbcn_within(full, M_ROT, None), f"{label}: the card's output is outside the stated tolerance")
+    ids = np.nonzero(~nan_cells)[0]
+    yo, xh, xf = (PM.to_device(p[ids], dev) for p in packs)
+    rt = torch.as_tensor(rots, dtype=torch.float32, device=dev)
+    device_ms = cuda_ms(lambda: PM.mbcn_correct(yo, xh, xf, rt, kinds=kinds), iters=2, warmup=1)
+    print(f"{label}: mbcn_grid {M_CELLS} cells x {M30_T} days x {M_D} variables, {M_ROT} rotations: wall "
+          f"{wall:.4f} s, {M_CELLS / wall:.1f} cells/s (host pack, copies and unpack included); "
+          f"mbcn_correct on the card {device_ms:.3f} ms (CUDA events); peak device memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}, no plain version; card {card}")
+
+
 # ----------------------------------------------------------------------
 # configs 7, 6, the per-cell fallback and config G
 # ----------------------------------------------------------------------
@@ -2527,14 +2733,20 @@ def fallback_phase(rng, card, dev):
 
 def k6_global_shapes(dev, ladder_args, map_args, card):
     """K6 at config G's two shapes (the ladder: one row of C x T knots and
-    the Q plotting positions as queries; the map: every cell row against the
-    shared Q-knot ladder) bitwise against its plain version, and timed."""
+    the Q plotting positions as queries, on the long-row route; the map:
+    every cell row against the shared Q-knot ladder) and on three long rows
+    with NaN knots, bitwise against its plain version, and timed, with each
+    launch's route."""
     import torch
 
     from skdownscale_tpu_torch.kernels import interp as I
 
+    _check(I._lib().sdt_interp_long_min() == I.LONG_ROW_MIN,
+           "K6: the build's SDT_K6_LONG_MIN is not kernels/interp.LONG_ROW_MIN")
+    g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for name, (xp, fp, q) in (("ladder", ladder_args), ("map", map_args)):
+    for name, (xp, fp, q) in (("ladder", ladder_args), ("map", map_args),
+                              ("long rows with NaN knots", long_nan_rows(g, dev))):
         got = I.batched_interp(xp, fp, q)
         torch.cuda.synchronize()
         err = bitwise_err(got, I.batched_interp_plain(xp, fp, q), f"K6 config G {name}")
@@ -2546,11 +2758,16 @@ def k6_global_shapes(dev, ladder_args, map_args, card):
         n_bytes = 4 * (xp.numel() + fp.numel() + q.numel() + got.numel())
         b_ms, b_by = bound(n_bytes, B * Q * (np.ceil(np.log2(L)) + 15))
         geo = I.launch_geometry(xp, fp, q)
+        _check((geo["route"] == "long row") == (name != "map") == I.long_row(L),
+               f"K6 config G {name}: route {geo['route']} at L = {L}")
+        if name == "long rows with NaN knots":
+            _check(bool(torch.isnan(got).any()), f"K6 {name}: no NaN came out")
         print(f"kernel batched_interp config G {name} ({B} rows, L={L}, Q={Q}): bitwise equal to "
-              f"plain (max |diff| {err}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB), one PyTorch call: none; "
-              f"{'staged' if geo['staged'] else 'device memory'}, {geo['threads']} threads a block, "
-              f"{geo['blocks_per_sm']} resident blocks an SM, grid {geo['grid']}; card {card}")
+              f"plain (max |diff| {err}), NaN out {int(torch.isnan(got).sum())}, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB), one "
+              f"PyTorch call: none; route {geo['route']}, {geo['threads']} threads a block, "
+              f"{geo['blocks_per_sm']} {'scan blocks' if geo['route'] == 'long row' else 'resident blocks'} "
+              f"an SM, grid {geo['grid']}; card {card}")
         rows.append((name, ms, plain_ms, b_ms))
     return rows
 
@@ -3565,7 +3782,7 @@ def cunnane_phase(card, dev):
               f"{map_bytes / 1e9:.4f} GB, the plotting positions read once), bound of K6's inputs "
               f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB, the plotting positions copied to each of the "
               f"{B} rows), {n_bytes / ms / 1e9:.3f} TB/s moved, library call none; "
-              f"{'staged' if geo['staged'] else 'device memory'}, {geo['threads']} threads a block, "
+              f"route {geo['route']}, {geo['threads']} threads a block, "
               f"{geo['smem_bytes']} B shared a block, {geo['blocks_per_sm']} resident blocks an SM, "
               f"grid {geo['grid']}; card {card}")
         rows.append((call, ms, plain_ms, m_ms, b_ms))
@@ -3718,7 +3935,8 @@ def main() -> int:
             launches[form] = l8[form]
         mbcn_phase("config 8 monthly", rng, card, dev, "month")
         config8b_phase(rng, card, dev)
-        mark("configs 8, 8 monthly and 8b")
+        mbcn_30y_phase(rng, card, dev)
+        mark("configs 8, 8 monthly, 8b and 8 at 30 years")
         config7_phase(rng, card, dev)
         mark("config 7")
         config6_phase(rng, card, dev)

@@ -61,6 +61,30 @@
 // (config 9b: 0.5241 ms through device memory against 0.5650 staged, the
 // same card and script).
 //
+// The long-row route, for rows of L >= SDT_K6_LONG_MIN knots (a choice by
+// length alone, mirrored by kernels/interp.LONG_ROW_MIN).  On the
+// device-memory route one block would scan such a row for NaN and then run
+// every search alone: config G's pooled ladder, one row of 239,206,400
+// knots and 2,048 queries, took 382.9 ms there against a 0.57 ms bound.
+// This route makes two launches on the caller's stream:
+//   1. a grid-wide NaN reduction: a few blocks an SM, each striding over
+//      chunks of kScanChunk knots of every long row's xp and fp (a shared
+//      table, stride 0, once), 16-byte loads of the chunk's aligned middle,
+//      kScanUnroll in flight a thread; a chunk that holds a NaN sets its
+//      row's flag by atomicOr in an int32 workspace of rows + 1 flags (the
+//      last for the shared tables) that the wrapper allocates and zeroes on
+//      the stream;
+//   2. the search, a block per (row, chunk of kLongThreads queries), a
+//      thread a query: the binary search of device memory (28 steps at
+//      2.4e8 knots, the top of the tree shared by every query in L2) and
+//      the closed form, with ends_of / upper_bound / finish as on the other
+//      routes, so the bits are the same.
+// The scan moves the row's 1.91 GB at the card's memory rate; the searches
+// are some 28 dependent loads a query, spread over the card.  On an H100
+// 80GB HBM3 at 700 W (chip_smoke.py --trials interp) the ladder row took
+// 0.6152 ms (384.2379 by one block), and mesh G's merged sketch row of
+// 32,768 knots 0.0347 ms (0.0417 by one block), which sets SDT_K6_LONG_MIN.
+//
 // The closed form is written with __fsub_rn / __fmul_rn / __fadd_rn /
 // __fdiv_rn so that nvcc does not contract it into FMAs: the plain PyTorch
 // version runs each operation as its own kernel, and the two are held
@@ -86,6 +110,11 @@ namespace {
 #endif
 #ifndef SDT_K6_THREADS
 #define SDT_K6_THREADS 0
+#endif
+// rows of at least this many knots take the long-row route; 0: no such route
+// (kernels/interp.LONG_ROW_MIN mirrors it)
+#ifndef SDT_K6_LONG_MIN
+#define SDT_K6_LONG_MIN 32768
 #endif
 
 constexpr int kMaxThreads = 512;  // the staged route's largest block
@@ -169,6 +198,78 @@ __global__ void batched_interp_global_kernel(const float* __restrict__ xp,
   for (int l = threadIdx.x; l < L; l += blockDim.x) has_nan |= isnan(xr[l]) | isnan(fr[l]);
   has_nan = __syncthreads_or(has_nan);
   interp_row(xr, fr, L, qr, orow, Q, has_nan);
+}
+
+// -- the long-row route -------------------------------------------------------
+
+constexpr int kScanThreads = 256;
+constexpr int kScanUnroll = 4;  // 16-byte loads in flight a thread
+constexpr int kScanChunk = kScanThreads * kScanUnroll * 4;  // knots a block takes at a time
+constexpr int kScanBlocksPerSm = 8;
+constexpr int kLongThreads = 128;  // queries a search block
+
+// Whether src[0, n) holds a NaN, on this thread's share: the aligned middle
+// as float4 loads, kScanUnroll issued before any is tested, the head and
+// tail as floats.  n <= kScanChunk.
+__device__ __forceinline__ bool chunk_has_nan(const float* __restrict__ src, int n) {
+  const int head = min(n, (int)((16 - ((uintptr_t)src & 15)) & 15) >> 2);
+  const int n4 = (n - head) >> 2;
+  const int tail = n - head - 4 * n4;
+  const int t = threadIdx.x;
+  bool nan = (t < head && isnan(src[t])) || (t < tail && isnan(src[head + 4 * n4 + t]));
+  const float4* v = reinterpret_cast<const float4*>(src + head);
+  float4 r[kScanUnroll];
+#pragma unroll
+  for (int u = 0; u < kScanUnroll; ++u) {
+    const int i = t + u * kScanThreads;
+    r[u] = i < n4 ? v[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int u = 0; u < kScanUnroll; ++u) nan |= isnan(r[u].x) | isnan(r[u].y) | isnan(r[u].z) | isnan(r[u].w);
+  return nan;
+}
+
+// Launch 1: flags[r] |= 1 when row r of xp or fp holds a NaN; flags[rows]
+// for a table shared by every row (stride 0), scanned once.  Segment s <
+// nx is row s of xp, the rest the rows of fp.
+__global__ void __launch_bounds__(kScanThreads)
+    long_row_nan_kernel(const float* __restrict__ xp, const float* __restrict__ fp,
+                        int* __restrict__ flags, int64_t rows, int L, int64_t xp_stride,
+                        int64_t fp_stride) {
+  const int64_t nx = xp_stride == 0 ? 1 : rows;
+  const int64_t nf = fp_stride == 0 ? 1 : rows;
+  const int64_t per_row = (L + (int64_t)kScanChunk - 1) / kScanChunk;
+  const int64_t total = (nx + nf) * per_row;
+  for (int64_t c = blockIdx.x; c < total; c += gridDim.x) {  // block-uniform
+    const int64_t seg = c / per_row;
+    const int64_t k0 = (c - seg * per_row) * kScanChunk;
+    const bool is_x = seg < nx;
+    const int64_t r = is_x ? seg : seg - nx;
+    const int64_t stride = is_x ? xp_stride : fp_stride;
+    const float* src = (is_x ? xp : fp) + r * stride + k0;
+    const bool nan = chunk_has_nan(src, (int)min((int64_t)kScanChunk, L - k0));
+    if (__syncthreads_or(nan) && threadIdx.x == 0) atomicOr(&flags[stride == 0 ? rows : r], 1);
+  }
+}
+
+// Launch 2: block b searches queries [chunk * kLongThreads, ...) of row
+// b / chunks, a thread a query.
+__global__ void __launch_bounds__(kLongThreads)
+    long_row_search_kernel(const float* __restrict__ xp, const float* __restrict__ fp,
+                           const float* __restrict__ q, float* __restrict__ out,
+                           const int* __restrict__ flags, int64_t rows, int L, int Q,
+                           int64_t xp_stride, int64_t fp_stride, int64_t q_stride) {
+  const int64_t chunks = (Q + kLongThreads - 1) / kLongThreads;
+  const int64_t row = blockIdx.x / chunks;
+  const int i = (int)(blockIdx.x - row * chunks) * kLongThreads + threadIdx.x;
+  if (i >= Q) return;
+  const float* xr = xp + row * xp_stride;
+  const float* fr = fp + row * fp_stride;
+  const bool has_nan = (flags[row] | flags[rows]) != 0;
+  const Ends e = ends_of(xr, fr, L);
+  const float qi = q[row * q_stride + i];
+  const bool search = !(isnan(qi) || qi > e.x_last || qi < e.x_first || has_nan);
+  out[row * (int64_t)Q + i] = finish(xr, fr, L, e, qi, search ? upper_bound(xr, L, qi) : 0, has_nan);
 }
 
 // -- the staged route ---------------------------------------------------------
@@ -288,8 +389,10 @@ size_t staged_bytes(int L, int Q, bool x_shared, bool f_shared, bool q_shared) {
          sizeof(float);
 }
 
+enum Route { kDeviceMemory = 0, kStaged = 1, kLongRow = 2 };
+
 struct Geometry {
-  bool staged;
+  Route route;
   int threads;
   size_t smem;
   int blocks_per_sm;
@@ -311,6 +414,17 @@ cudaError_t plan_launch(int64_t rows, int L, int Q, bool x_shared, bool f_shared
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
+  if (SDT_K6_LONG_MIN > 0 && L >= SDT_K6_LONG_MIN) {
+    // the search grid; blocks_per_sm and smem describe the scan
+    const int64_t chunks = ((int64_t)Q + kLongThreads - 1) / kLongThreads;
+    if (rows * chunks > 0x7fffffff) return cudaErrorInvalidValue;
+    g->route = kLongRow;
+    g->threads = kLongThreads;
+    g->smem = 0;
+    g->blocks_per_sm = kScanBlocksPerSm;
+    g->grid = rows * chunks;
+    return cudaSuccess;
+  }
   int threads = ((Q + 31) / 32) * 32;
   threads = threads < 64 ? 64 : threads > 256 ? 256 : threads;
   int global_blocks = 0;
@@ -320,9 +434,10 @@ cudaError_t plan_launch(int64_t rows, int L, int Q, bool x_shared, bool f_shared
   const size_t row_bytes = ((x_shared ? 0 : 1) + (f_shared ? 0 : 1)) * (size_t)L * sizeof(float);
   const size_t smem = staged_bytes(L, Q, x_shared, f_shared, q_shared);
   const bool fits = smem <= (size_t)optin;
-  g->staged = fits && (SDT_K6_ROUTE == 1 ||
-                       (SDT_K6_ROUTE == 0 && row_bytes * global_blocks > kL1RowBytes));
-  if (!g->staged) {
+  const bool staged = fits && (SDT_K6_ROUTE == 1 ||
+                               (SDT_K6_ROUTE == 0 && row_bytes * global_blocks > kL1RowBytes));
+  g->route = staged ? kStaged : kDeviceMemory;
+  if (!staged) {
     g->threads = threads;
     g->smem = 0;
     g->blocks_per_sm = global_blocks;
@@ -357,8 +472,10 @@ cudaError_t plan_launch(int64_t rows, int L, int Q, bool x_shared, bool f_shared
 
 extern "C" {
 
+// flags: rows + 1 zeroed int32 on the stream where the rows take the
+// long-row route (L >= sdt_interp_long_min()), else unused (may be null).
 int sdt_batched_interp(const float* xp, const float* fp, const float* q,
-                       float* out, int64_t rows, int L, int Q,
+                       float* out, int* flags, int64_t rows, int L, int Q,
                        int64_t xp_stride, int64_t fp_stride, int64_t q_stride,
                        void* stream) {
   if (rows <= 0 || rows > 0x7fffffff || L <= 0 || Q <= 0) {
@@ -367,7 +484,22 @@ int sdt_batched_interp(const float* xp, const float* fp, const float* q,
   Geometry g;
   cudaError_t err = plan_launch(rows, L, Q, xp_stride == 0, fp_stride == 0, q_stride == 0, &g);
   if (err != cudaSuccess) return (int)err;
-  if (g.staged) {
+  if (g.route == kLongRow) {
+    if (flags == nullptr) return (int)cudaErrorInvalidValue;
+    int dev, sms;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t per_row = (L + (int64_t)kScanChunk - 1) / kScanChunk;
+    const int64_t work = ((xp_stride == 0 ? 1 : rows) + (fp_stride == 0 ? 1 : rows)) * per_row;
+    const int64_t scan_grid = work < (int64_t)kScanBlocksPerSm * sms ? work : (int64_t)kScanBlocksPerSm * sms;
+    long_row_nan_kernel<<<(unsigned)scan_grid, kScanThreads, 0, (cudaStream_t)stream>>>(
+        xp, fp, flags, rows, L, xp_stride, fp_stride);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    long_row_search_kernel<<<(unsigned)g.grid, g.threads, 0, (cudaStream_t)stream>>>(
+        xp, fp, q, out, flags, rows, L, Q, xp_stride, fp_stride, q_stride);
+  } else if (g.route == kStaged) {
     batched_interp_staged_kernel<<<(unsigned)g.grid, g.threads, g.smem, (cudaStream_t)stream>>>(
         xp, fp, q, out, rows, L, Q, xp_stride, fp_stride, q_stride);
   } else {
@@ -377,18 +509,24 @@ int sdt_batched_interp(const float* xp, const float* fp, const float* q,
   return (int)cudaGetLastError();
 }
 
-// The launch these sizes take, launching nothing: res = [staged, threads a
-// block, shared bytes a block, resident blocks an SM, blocks in the grid].
+// The launch these sizes take, launching nothing: res = [route (0 device
+// memory, 1 staged, 2 long row), threads a block, shared bytes a block,
+// resident blocks an SM, blocks in the grid]; on the long-row route the
+// last three describe the scan's blocks an SM and the search's grid.
 int sdt_interp_geometry(int64_t rows, int L, int Q, int x_shared, int f_shared, int q_shared,
                         int64_t* res) {
   if (rows <= 0 || rows > 0x7fffffff || L <= 0 || Q <= 0) return (int)cudaErrorInvalidValue;
   Geometry g;
   const cudaError_t err = plan_launch(rows, L, Q, x_shared != 0, f_shared != 0, q_shared != 0, &g);
   if (err != cudaSuccess) return (int)err;
-  const int64_t vals[5] = {g.staged ? 1 : 0, g.threads, (int64_t)g.smem, g.blocks_per_sm, g.grid};
+  const int64_t vals[5] = {(int64_t)g.route, g.threads, (int64_t)g.smem, g.blocks_per_sm, g.grid};
   for (int i = 0; i < 5; ++i) res[i] = vals[i];
   return 0;
 }
+
+// SDT_K6_LONG_MIN of this build: rows of at least this many knots take the
+// long-row route (0: none do).
+int sdt_interp_long_min() { return SDT_K6_LONG_MIN; }
 
 const char* sdt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -22,7 +22,9 @@ skips a NaN knot instead; the port follows ``interp_ramp``.)
 
 Dispatch: a tensor on the CPU goes to the plain version; CUDA float32
 tensors launch the hand-written kernel of ``csrc/interp.cu`` (see the notes
-there); anything else raises.
+there); anything else raises.  Rows of at least :data:`LONG_ROW_MIN` knots
+take the kernel's long-row route (:func:`long_row`): a grid-wide NaN scan,
+then the searches spread over the card, two launches of one K6 call.
 """
 
 from __future__ import annotations
@@ -34,14 +36,28 @@ import torch
 
 from . import LAUNCHES, build, check_launch, on_kernel
 
-__all__ = ["LAUNCHES", "batched_interp", "batched_interp_plain", "launch_geometry"]
+__all__ = ["LAUNCHES", "LONG_ROW_MIN", "batched_interp", "batched_interp_plain", "launch_geometry",
+           "long_row"]
+
+# SDT_K6_LONG_MIN of csrc/interp.cu: rows of at least this many knots take
+# the long-row route (config G's pooled ladder, one row of 2.4e8 knots; mesh
+# G's merged sketch row of 32,768, faster there than a block a row)
+LONG_ROW_MIN = 32768
+
+
+def long_row(L: int) -> bool:
+    """Whether rows of ``L`` knots take K6's long-row route, by length
+    alone (the other routes' choice reads the card).  Needs no card."""
+    return L >= LONG_ROW_MIN
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a build of ``csrc/interp.cu``."""
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.sdt_batched_interp.argtypes = [vp, vp, vp, vp, i64, i32, i32, i64, i64, i64, vp]
+    lib.sdt_batched_interp.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i64, i64, i64, vp]
     lib.sdt_batched_interp.restype = i32
+    lib.sdt_interp_long_min.argtypes = []
+    lib.sdt_interp_long_min.restype = i32
     lib.sdt_interp_geometry.argtypes = [i64, i32, i32, i32, i32, i32, vp]
     lib.sdt_interp_geometry.restype = i32
     lib.sdt_error_string.argtypes = [i32]
@@ -55,23 +71,34 @@ def _lib() -> ctypes.CDLL:
     return declare(build.load("interp"))
 
 
-GEOMETRY_KEYS = ("staged", "threads", "smem_bytes", "blocks_per_sm", "grid")
+GEOMETRY_KEYS = ("route", "threads", "smem_bytes", "blocks_per_sm", "grid")
+ROUTES = ("device memory", "staged", "long row")
 
 
 def launch_geometry(xp: torch.Tensor, fp: torch.Tensor, q: torch.Tensor,
                     lib: ctypes.CDLL | None = None) -> dict:
     """The launch K6 (or another build of it, ``lib``) takes for these
-    arguments on the current card, launching nothing: whether the rows are
-    staged in shared memory (or searched in device memory), threads a
-    block, shared bytes a block, resident blocks an SM and blocks in the
-    grid.  Needs the card."""
+    arguments on the current card, launching nothing: its route
+    (``staged`` in shared memory, ``device memory`` or ``long row``; and
+    ``staged`` as a bool), threads a block, shared bytes a block, resident
+    blocks an SM and blocks in the grid (on the long-row route: the NaN
+    scan's blocks an SM and the search's grid).  Needs the card."""
     B = _out_rows(xp, fp, q)
     lib = lib or _lib()
     res = (ctypes.c_int64 * len(GEOMETRY_KEYS))()
     rc = lib.sdt_interp_geometry(B, xp.shape[1], q.shape[1], int(xp.shape[0] == 1),
                                  int(fp.shape[0] == 1), int(q.shape[0] == 1), ctypes.addressof(res))
     check_launch(lib, rc, "batched_interp")
-    return dict(zip(GEOMETRY_KEYS, res))
+    geo = dict(zip(GEOMETRY_KEYS, res))
+    geo["route"] = ROUTES[geo["route"]]
+    geo["staged"] = geo["route"] == "staged"
+    return geo
+
+
+@functools.lru_cache(maxsize=None)
+def _long_min(lib: ctypes.CDLL) -> int:
+    """SDT_K6_LONG_MIN of a build (0: no long-row route)."""
+    return lib.sdt_interp_long_min()
 
 
 def _out_rows(xp: torch.Tensor, fp: torch.Tensor, q: torch.Tensor) -> int:
@@ -161,10 +188,14 @@ def launch(lib: ctypes.CDLL, xp: torch.Tensor, fp: torch.Tensor, q: torch.Tensor
     def stride(t):
         return 0 if t.shape[0] == 1 else t.stride(0)
 
+    long_min = _long_min(lib)
+    # the long-row route's NaN flags: one a row and one for the shared tables
+    flags = torch.zeros(B + 1, dtype=torch.int32, device=q.device) if 0 < long_min <= L else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.sdt_batched_interp(
             xp.data_ptr(), fp.data_ptr(), q.data_ptr(), out.data_ptr(),
+            0 if flags is None else flags.data_ptr(),
             B, L, Q, stride(xp), stride(fp), stride(q), stream,
         )
     check_launch(lib, rc, "batched_interp")

@@ -21,10 +21,11 @@ All three work on ``(B, L)`` rows and replace ``sort_rows``,
 
 Dispatch: a tensor on the CPU goes to the plain version (float32 or
 float64); a contiguous CUDA float32 tensor (int32 positions) launches the
-hand-written kernel of ``csrc/sort_rows.cu`` (see the notes there), for
-rows up to :data:`K9_MAX_LEN`; anything else raises.  Callers reach K9
-through :func:`on_rows`, which sends longer rows to the plain version by
-shape before any launch, as K1's callers do above ``COUNT_SORT_MAX_LEN``.
+hand-written kernel of ``csrc/sort_rows.cu`` (see the notes there) at any
+row length: rows up to :data:`K9_MAX_LEN` are sorted in shared memory,
+longer rows through a device-memory workspace that the wrapper allocates
+on the caller's stream; anything else raises.  Callers reach K9 through
+:func:`on_rows`.
 """
 
 from __future__ import annotations
@@ -48,29 +49,47 @@ __all__ = [
     "sort_rows_with_positions_plain",
     "unsort_rows",
     "unsort_rows_plain",
+    "unsort_route",
 ]
 
-# longest row the kernel takes: positions travel as 16-bit payloads, and a
-# block holds its row's keys and positions in shared memory, 48 KB at 8,192
-# (of the 227 KB a block may use); that covers 10 and 20 years of daily data
-# (3,650, 7,305)
+# longest row sorted in shared memory: positions travel as 16-bit payloads,
+# and a block holds its row's keys and positions in shared memory, 48 KB at
+# 8,192 (of the 227 KB a block may use); longer rows take the long route
+# (``csrc/sort_rows.cu``), which passes keys and int32 positions through
+# device memory
 K9_MAX_LEN = 8192
+
+# the unsort's routes, by the code ``sdt_unsort_route`` returns
+UNSORT_ROUTES = ("warp", "block", "scatter")
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a build of ``csrc/sort_rows.cu``."""
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.sdt_sort_rows.argtypes = [vp, vp, vp, i64, i32, vp]
+    lib.sdt_sort_rows.restype = i32
+    lib.sdt_sort_rows_with_positions.argtypes = [vp, vp, vp, vp, i64, i32, vp]
+    lib.sdt_sort_rows_with_positions.restype = i32
+    lib.sdt_unsort_rows.argtypes = [vp, vp, vp, i64, i32, vp]
+    lib.sdt_unsort_rows.restype = i32
+    lib.sdt_unsort_route.argtypes = [i32]
+    lib.sdt_unsort_route.restype = i32
+    lib.sdt_error_string.argtypes = [i32]
+    lib.sdt_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """Build (first use only), load and declare ``csrc/sort_rows.cu``."""
-    lib = build.load("sort_rows")
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.sdt_sort_rows.argtypes = [vp, vp, i64, i32, vp]
-    lib.sdt_sort_rows.restype = i32
-    lib.sdt_sort_rows_with_positions.argtypes = [vp, vp, vp, i64, i32, vp]
-    lib.sdt_sort_rows_with_positions.restype = i32
-    lib.sdt_unsort_rows.argtypes = [vp, vp, vp, i64, i32, vp]
-    lib.sdt_unsort_rows.restype = i32
-    lib.sdt_error_string.argtypes = [i32]
-    lib.sdt_error_string.restype = ctypes.c_char_p
-    return lib
+    """Build (first use only) and load ``csrc/sort_rows.cu``."""
+    return declare(build.load("sort_rows"))
+
+
+def unsort_route(L: int, lib: ctypes.CDLL | None = None) -> str:
+    """The route K9's unsort (or another build of it, ``lib``) takes at row
+    length ``L``: ``warp``, ``block`` or ``scatter``.  Needs the built
+    library, not the card."""
+    return UNSORT_ROUTES[(lib or _lib()).sdt_unsort_route(L)]
 
 
 def _rows(x: torch.Tensor) -> tuple[int, int]:
@@ -79,18 +98,48 @@ def _rows(x: torch.Tensor) -> tuple[int, int]:
     return x.shape[0], x.shape[1]
 
 
-def _kernel_len(L: int) -> None:
+def _on(device: torch.device, launch):
+    """``launch(stream)`` with ``device``'s current CUDA stream as a raw
+    handle, ``device`` made current first where it is not (the C entry
+    points launch on the current device).  The raw handle spares a Stream
+    object a call: at monthly rows the unsort's kernel is shorter than the
+    host's part of a call."""
+    if torch.cuda.current_device() != device.index:
+        with torch.cuda.device(device):
+            return launch(torch._C._cuda_getCurrentRawStream(device.index))
+    return launch(torch._C._cuda_getCurrentRawStream(device.index))
+
+
+def launch_sort(lib: ctypes.CDLL, x: torch.Tensor, with_positions: bool):
+    """One launch of a build of the sort (with positions) on a checked,
+    non-empty contiguous CUDA float32 ``(B, L)`` tensor: the sorted rows
+    (and int32 positions).  Rows above :data:`K9_MAX_LEN` get their
+    workspace here, on the current stream.  Counts nothing."""
+    B, L = x.shape
+    out = torch.empty_like(x)
+    pos = torch.empty(x.shape, dtype=torch.int32, device=x.device) if with_positions else None
+    work = None
     if L > K9_MAX_LEN:
-        raise ValueError(f"the K9 kernel takes rows of L <= {K9_MAX_LEN}, got {L}")
+        work = torch.empty((2 if with_positions else 1, B, L), dtype=torch.int32, device=x.device)
+    wp = 0 if work is None else work.data_ptr()
+    if with_positions:
+        rc = _on(x.device, lambda s: lib.sdt_sort_rows_with_positions(
+            x.data_ptr(), out.data_ptr(), pos.data_ptr(), wp, B, L, s))
+    else:
+        rc = _on(x.device, lambda s: lib.sdt_sort_rows(x.data_ptr(), out.data_ptr(), wp, B, L, s))
+    check_launch(lib, rc, "sort_rows_with_positions" if with_positions else "sort_rows")
+    return (out, pos) if with_positions else out
 
 
-def _launch(entry, name: str, device, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-    check_launch(lib, rc, name)
-    LAUNCHES[name] += 1
+def launch_unsort(lib: ctypes.CDLL, vals: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One launch of a build of the unsort on checked, non-empty CUDA
+    arguments.  Counts nothing."""
+    B, L = vals.shape
+    out = torch.empty_like(vals)
+    rc = _on(vals.device, lambda s: lib.sdt_unsort_rows(vals.data_ptr(), pos.data_ptr(),
+                                                        out.data_ptr(), B, L, s))
+    check_launch(lib, rc, "unsort_rows")
+    return out
 
 
 def sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
@@ -105,10 +154,10 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
     B, L = _rows(x)
     if not on_kernel(x):
         return sort_rows_plain(x)
-    _kernel_len(L)
-    out = torch.empty_like(x)
-    if B and L:
-        _launch("sdt_sort_rows", "sort_rows", x.device, x.data_ptr(), out.data_ptr(), B, L)
+    if not (B and L):
+        return torch.empty_like(x)
+    out = launch_sort(_lib(), x, False)
+    LAUNCHES["sort_rows"] += 1
     return out
 
 
@@ -125,13 +174,11 @@ def sort_rows_with_positions(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
     B, L = _rows(x)
     if not on_kernel(x):
         return sort_rows_with_positions_plain(x)
-    _kernel_len(L)
-    out = torch.empty_like(x)
-    pos = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    if B and L:
-        _launch("sdt_sort_rows_with_positions", "sort_rows_with_positions", x.device,
-                x.data_ptr(), out.data_ptr(), pos.data_ptr(), B, L)
-    return out, pos
+    if not (B and L):
+        return torch.empty_like(x), torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    out = launch_sort(_lib(), x, True)
+    LAUNCHES["sort_rows_with_positions"] += 1
+    return out
 
 
 def _check_pos(vals: torch.Tensor, pos: torch.Tensor) -> None:
@@ -155,25 +202,22 @@ def unsort_rows(vals: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     _check_pos(vals, pos)
     if not on_kernel(vals):
         return unsort_rows_plain(vals, pos)
-    _kernel_len(L)
     if pos.dtype != torch.int32 or not pos.is_contiguous():
         raise TypeError(f"the CUDA kernel takes contiguous int32 positions, got {pos.dtype}")
-    out = torch.empty_like(vals)
-    if B and L:
-        _launch("sdt_unsort_rows", "unsort_rows", vals.device,
-                vals.data_ptr(), pos.data_ptr(), out.data_ptr(), B, L)
+    if not (B and L):
+        return torch.empty_like(vals)
+    out = launch_unsort(_lib(), vals, pos)
+    LAUNCHES["unsort_rows"] += 1
     return out
 
 
 def on_rows(form: str, *ts: torch.Tensor):
     """K9 form ``form`` (``"sort_rows"``, ``"sort_rows_with_positions"`` or
     ``"unsort_rows"``) on ``(..., L)`` tensors through their contiguous
-    ``(rows, L)`` view, the outputs back with the leading dims.  Rows longer
-    than :data:`K9_MAX_LEN` take the form's plain version: a shape route,
-    taken before any launch."""
+    ``(rows, L)`` view, the outputs back with the leading dims.  The form
+    launches the kernel at every ``L`` on the card."""
     lead, L = ts[0].shape[:-1], ts[0].shape[-1]
-    fn = globals()[form if L <= K9_MAX_LEN else f"{form}_plain"]
-    out = fn(*(t.reshape(-1, L).contiguous() for t in ts))
+    out = globals()[form](*(t.reshape(-1, L).contiguous() for t in ts))
     if isinstance(out, tuple):
         return tuple(o.reshape(*lead, L) for o in out)
     return out.reshape(*lead, L)

@@ -148,10 +148,9 @@ def _sort_segments(flat, L: int):
     """Sort each length-``L`` segment of a (rows, G*L) table: the segment
     count-sort K1 up to ``COUNT_SORT_MAX_LEN``, above it the row sort K9 on
     the (rows*G, L) view (the dense daily fit's 620-wide windows; the JAX
-    package's ``grouped.py:170`` and ``streaming.py:75`` sites), which
-    :func:`..kernels.sort_rows.on_rows` sends to its plain version above
-    ``K9_MAX_LEN``: shape routes, taken before any launch.  All give the
-    same bits."""
+    package's ``grouped.py:170`` and ``streaming.py:75`` sites) at any
+    length: a shape route, taken before any launch.  Both give the same
+    bits."""
     if L <= COUNT_SORT_MAX_LEN:
         return count_sort_segments(flat, L)
     return on_rows("sort_rows", flat.reshape(-1, L)).reshape(flat.shape)

@@ -27,8 +27,9 @@ takes from the sorted obs row and an fma.  The JAX package's ``lax.scan``
 over the rotations is a Python loop here.
 
 Ties take distinct ranks in input order (a stable sort), as the JAX
-package's ``lax.sort(..., is_stable=True)`` gives.  Rows longer than
-``K9_MAX_LEN`` take K9's plain version (:func:`..kernels.sort_rows.on_rows`).
+package's ``lax.sort(..., is_stable=True)`` gives.  K9 takes rows of any
+length on the card (:func:`..kernels.sort_rows.on_rows`): a 30-year daily
+calibration period of 10,957 days takes its long route.
 """
 
 from __future__ import annotations

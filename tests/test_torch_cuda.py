@@ -15,6 +15,7 @@ import torch
 
 import skdownscale_tpu_torch as P
 from skdownscale_tpu_torch.kernels import rank_map as K
+from skdownscale_tpu_torch.kernels.interp import LONG_ROW_MIN as _LONG_MIN
 from skdownscale_tpu_torch.kernels import slide_sort as S
 from skdownscale_tpu_torch.models import bcsd as B
 from skdownscale_tpu_torch.models.slide import build_slide_plan
@@ -435,18 +436,26 @@ def test_interp_kernel_persistent_grid_with_every_shared_argument(cuda_device, r
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "B,L,Q,staged", [(3, 40_000, 500, 0), (5, 14_000, 300, 1), (7, 3650, 732, 1), (7, 1462, 732, 0)]
+    "B,L,Q,route",
+    [(3, 40_000, 500, "long row" if _LONG_MIN <= 40_000 else "device memory"),
+     (5, 14_000, 300, "staged"), (7, 3650, 732, "staged"), (7, 1462, 732, "device memory"),
+     # about the long-row route's edge
+     (3, _LONG_MIN - 1, 300, "device memory"), (3, _LONG_MIN, 300, "long row"),
+     (3, _LONG_MIN + 1, 300, "long row"), (1, 1_000_003, 2048, "long row")],
 )
-def test_interp_kernel_long_rows_and_fewer_rows_than_blocks(cuda_device, rng, B, L, Q, staged):
+def test_interp_kernel_long_rows_and_fewer_rows_than_blocks(cuda_device, rng, B, L, Q, route):
     """Rows too long to stage twice keep the route through device memory,
     and so do rows short enough for L1 to hold those of every resident
     block; a staged grid of fewer rows than resident blocks takes one block
-    a row."""
+    a row; rows of LONG_ROW_MIN knots and more take the long-row route (a
+    grid-wide NaN scan, then a block per row and chunk of queries)."""
     from skdownscale_tpu_torch.kernels import interp as I
 
     t = _interp_tensors(rng, B, L, Q, (), cuda_device, offset=3, nan_rows=True)
     g = I.launch_geometry(*t)
-    assert g["staged"] == staged and (not staged or g["grid"] == B), g
+    assert I._lib().sdt_interp_long_min() == I.LONG_ROW_MIN
+    assert g["route"] == route and (route == "long row") == I.long_row(L), g
+    assert g["staged"] == (route == "staged") and (route != "staged" or g["grid"] == B), g
     n0 = I.LAUNCHES["batched_interp"]
     got = I.batched_interp(*t)
     torch.cuda.synchronize()
@@ -781,7 +790,9 @@ def _k9_rows(rng, B, L):
     [(4096, 1), (4096, 7), (2048, 620), (512, 3650), (32, 8192),
      # a warp a row (L <= 1,024, four rows a block) and a block a row around
      # the edge between them, with row counts that leave a block part full
-     (6144, 304), (3001, 620), (64, 1024), (64, 1025), (8, 33), (7, 8191)],
+     (6144, 304), (3001, 620), (64, 1024), (64, 1025), (8, 33), (7, 8191),
+     # the long route: one past K9_MAX_LEN, 30 years of days, tiles part full
+     (9, 8193), (5, 10957), (3, 55152)],
 )
 def test_k9_forms_bitwise_vs_plain(cuda_device, rng, B, L):
     from skdownscale_tpu_torch.kernels import sort_rows as S
@@ -806,29 +817,40 @@ def test_k9_forms_bitwise_vs_plain(cuda_device, rng, B, L):
 
 
 @pytest.mark.cuda
-def test_k9_above_its_limit_takes_the_plain_route(cuda_device, rng):
-    """Rows of K9_MAX_LEN + 1: the wrappers raise, and the callers' shape
-    route (MBCn's reorder, the BCSD group sort) takes the plain version and
-    launches nothing."""
+@pytest.mark.parametrize("L", [8193, 10957])
+def test_k9_long_rows_launch_the_kernel_from_the_callers(cuda_device, rng, monkeypatch, L):
+    """Rows above K9_MAX_LEN (one past it, and a 30-year daily calibration
+    period) take K9's long route: MBCn's reorder and the BCSD group sort
+    launch K9 with the plain versions made to raise, bitwise equal to the
+    plain versions."""
     from skdownscale_tpu_torch.kernels import sort_rows as S
     from skdownscale_tpu_torch.models import mbc as PM
     from skdownscale_tpu_torch.models.grouped import _sort_within_groups
     from skdownscale_tpu_torch.utils.timeindex import PaddedGroups
 
-    L = S.K9_MAX_LEN + 1
-    x = torch.from_numpy(rng.normal(0, 1, (6, L)).astype(np.float32)).to(cuda_device)
-    t = torch.from_numpy(rng.normal(0, 1, (6, L)).astype(np.float32)).to(cuda_device)
-    for call in (lambda: S.sort_rows(x), lambda: S.sort_rows_with_positions(x)):
-        with pytest.raises(ValueError):
-            call()
+    x = torch.from_numpy(_k9_rows(rng, 6, L)).to(cuda_device)
+    t = torch.from_numpy(_k9_rows(rng, 6, L)).to(cuda_device)
+    plain = {name: getattr(S, name) for name in
+             ("sort_rows_plain", "sort_rows_with_positions_plain", "unsort_rows_plain")}
+
+    def raiser(*a, **k):
+        raise AssertionError("a plain version ran on CUDA")
+
+    for name in plain:
+        monkeypatch.setattr(S, name, raiser)
     n0 = dict(S.LAUNCHES)
     out = PM.rank_reorder(x, t)
     groups = PaddedGroups.from_labels(np.zeros(L, np.int64), np.arange(1))
     srt = _sort_within_groups(x, groups)
     torch.cuda.synchronize()
-    assert dict(S.LAUNCHES) == n0
-    assert torch.equal(srt.view(torch.int32), S.sort_rows_plain(x).view(torch.int32))
-    assert torch.equal(torch.sort(out, dim=1).values, torch.sort(x, dim=1).values)
+    monkeypatch.undo()
+    assert S.LAUNCHES["sort_rows"] == n0.get("sort_rows", 0) + 2
+    assert S.LAUNCHES["sort_rows_with_positions"] == n0.get("sort_rows_with_positions", 0) + 1
+    assert S.LAUNCHES["unsort_rows"] == n0.get("unsort_rows", 0) + 1
+    assert torch.equal(srt.view(torch.int32), plain["sort_rows_plain"](x).view(torch.int32))
+    _, pos = plain["sort_rows_with_positions_plain"](t)
+    want = plain["unsort_rows_plain"](plain["sort_rows_plain"](x), pos)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

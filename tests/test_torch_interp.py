@@ -40,6 +40,7 @@ ji = importlib.import_module("skdownscale_tpu.ops.interp")
 
 pi = importlib.import_module("skdownscale_tpu_torch.ops.interp")  # the port's too
 from skdownscale_tpu_torch.kernels import LAUNCHES
+from skdownscale_tpu_torch.kernels import interp as I
 from skdownscale_tpu_torch.kernels.interp import batched_interp, batched_interp_plain
 from skdownscale_tpu_torch.ops.ranks import self_quantiles
 
@@ -352,3 +353,152 @@ def test_self_quantiles_matches_numpy(n, seed, quantize):
     pp = (np.arange(1, n + 1) - 0.4) / (n + 0.2)
     got = self_quantiles(_t(x), _t(pp)).numpy()
     npt.assert_allclose(got, np.interp(x, np.sort(x), pp), rtol=1e-12)
+
+
+# ----------------------------------------------------------------------
+# the CUDA kernel's long-row route (csrc/interp.cu), modelled in numpy:
+# its partition of the NaN scan and of the searches gives the plain bits
+# ----------------------------------------------------------------------
+
+SCAN_CHUNK, SCAN_THREADS, LONG_THREADS = 4096, 256, 128  # kScanChunk, kScanThreads, kLongThreads
+
+
+def _finish_f32(xp, fp, q, has_nan):
+    """``finish`` of csrc/interp.cu on one row in numpy float32: the bracket
+    by ``upper_bound`` (a right-sided search), the clamps and the closed
+    form evaluated from the nearer knot, each operation rounded alone."""
+    f32 = np.float32
+    L = xp.size
+    big = f32(np.finfo(np.float32).max / 8)
+    with np.errstate(all="ignore"):
+        lo = np.searchsorted(xp, q, side="right")
+        x0 = np.where(lo > 0, xp[np.maximum(lo - 1, 0)], -np.inf).astype(f32)
+        f0 = np.where(lo > 0, fp[np.maximum(lo - 1, 0)], -np.inf).astype(f32)
+        x1 = np.where(lo < L, xp[np.minimum(lo, L - 1)], np.inf).astype(f32)
+        f1 = np.where(lo < L, fp[np.minimum(lo, L - 1)], np.inf).astype(f32)
+        x0, x1, f1 = np.clip(x0, -big, big), np.clip(x1, -big, big), np.minimum(f1, big)
+        dx = x1 - x0
+        slope = np.where(dx != 0, (f1 - f0) / np.where(dx != 0, dx, f32(1)), f32(0)).astype(f32)
+        from_left = q - x0
+        res = np.where(from_left > x1 - q, f1 + (q - x1) * slope, f0 + from_left * slope)
+    res = np.where(has_nan, f32(np.nan), res)
+    res = np.where(q < xp[0], fp[0], res)
+    res = np.where(q > xp[-1], fp[-1], res)
+    return np.where(np.isnan(q), q, res).astype(f32)
+
+
+def _scan_chunk(row, k0, n, offset):
+    """The knots of one scan chunk, by the kernel's three parts: the head up
+    to the 16-byte boundary (``offset``: the row's element offset within a
+    16-byte line), the float4 middle, the tail."""
+    head = min(n, (4 - (offset + k0) % 4) % 4)
+    n4 = (n - head) // 4
+    parts = [row[k0:k0 + head], row[k0 + head:k0 + head + 4 * n4], row[k0 + head + 4 * n4:k0 + n]]
+    assert sum(p.size for p in parts) == n
+    return parts
+
+
+def _route_model(xp, fp, q):
+    """K6 as its route partitions the work, in numpy float32: on the
+    long-row route the NaN flag of a row (or of the shared tables) is the
+    OR over the scan's chunks of every xp and fp row, and the search grid
+    of (row, chunk of LONG_THREADS queries) blocks takes each query once;
+    below LONG_ROW_MIN a block a row scans and searches its row.  Returns
+    (out, how often each query was searched)."""
+    B = max(t.shape[0] for t in (xp, fp, q))
+    L, Q = xp.shape[1], q.shape[1]
+    flags = np.zeros(B + 1, bool)
+    if I.long_row(L):
+        nx, nf = xp.shape[0], fp.shape[0]
+        per_row = -(-L // SCAN_CHUNK)
+        for c in range((nx + nf) * per_row):
+            seg, k = divmod(c, per_row)
+            t, r = (xp, seg) if seg < nx else (fp, seg - nx)
+            n = min(SCAN_CHUNK, L - k * SCAN_CHUNK)
+            nan = any(np.isnan(p).any() for p in _scan_chunk(t[r], k * SCAN_CHUNK, n, (r * L) % 4))
+            flags[B if t.shape[0] == 1 else r] |= nan
+        blocks = [(b, ch) for b in range(B) for ch in range(-(-Q // LONG_THREADS))]
+        threads = LONG_THREADS
+    else:
+        for b in range(B):
+            for t in (xp, fp):
+                row = t[0 if t.shape[0] == 1 else b]
+                flags[b] |= any(np.isnan(row[tid::SCAN_THREADS]).any() for tid in range(SCAN_THREADS))
+        blocks = [(b, ch) for b in range(B) for ch in range(-(-Q // Q))]
+        threads = Q
+    out = np.full((B, Q), np.float32(-7.0))
+    searched = np.zeros((B, Q), np.int64)
+    for b, ch in blocks:
+        i = ch * threads + np.arange(threads)
+        i = i[i < Q]
+        searched[b, i] += 1
+        take = lambda t: t[0 if t.shape[0] == 1 else b]  # noqa: E731
+        out[b, i] = _finish_f32(take(xp), take(fp), take(q)[i], flags[b] | flags[B])
+    return out, searched
+
+
+def _long_rows(rng, L, Q, shared_q):
+    """Three rows of L sorted float32 knots and values: a NaN knot of xp in
+    the row's last scan chunk, a NaN in fp only, and a clean row; queries
+    inside, outside and at the knots, NaN and +-inf."""
+    xp = np.sort(rng.normal(0, 5, (3, L)), axis=1).astype(np.float32)
+    fp = np.sort(rng.uniform(0, 1, (3, L)), axis=1).astype(np.float32)
+    xp[0, L - 2] = np.nan
+    fp[1, L // 2] = np.nan
+    q = rng.normal(0, 6, (1 if shared_q else 3, Q)).astype(np.float32)
+    q[:, :40] = xp[2, rng.integers(0, L, 40)]  # knot hits
+    q[:, 40:43] = [np.nan, np.inf, -np.inf]
+    return xp, fp, q
+
+
+@pytest.mark.parametrize("shared_q", [False, True])
+@pytest.mark.parametrize("dL", [-1, 0, 1])
+def test_long_row_route_model_matches_the_plain_version_bitwise(rng, dL, shared_q):
+    """At LONG_ROW_MIN - 1 (a block a row), LONG_ROW_MIN and LONG_ROW_MIN +
+    1 (the long-row route), rows with a NaN knot in xp's last chunk, a NaN
+    in fp only and none: the routes' partition searches every query once
+    and gives batched_interp_plain's bits."""
+    L, Q = I.LONG_ROW_MIN + dL, 300
+    assert I.long_row(L) == (dL >= 0)
+    xp, fp, q = _long_rows(rng, L, Q, shared_q)
+    got, searched = _route_model(xp, fp, q)
+    npt.assert_array_equal(searched, 1)
+    want = batched_interp_plain(_t(xp), _t(fp), _t(q)).numpy()
+    npt.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    for r in (0, 1):  # every query the end clamps do not catch gives NaN
+        qr = q[r % q.shape[0]]
+        inner = ~np.isnan(qr) & (qr >= xp[r, 0]) & (qr <= xp[r, -1])
+        assert inner.sum() > Q // 2 and np.isnan(want[r, inner]).all()
+    assert not np.isnan(want[2, ~np.isnan(q[-1])]).any()
+    # a shared table (stride 0) is scanned once and flags every row
+    got, _ = _route_model(xp[:1], fp[2:], q)
+    want = batched_interp_plain(_t(xp[:1]), _t(fp[2:]), _t(q)).numpy()
+    npt.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_long_row_takes_config_g_ladder_only():
+    """The long-row route by length alone: config G's pooled ladder (one
+    row of 239,206,400 knots) takes it; G's map (2,048 knots), config 9b's
+    (1,462), config 8's (3,650) and the Cunnane maps' (620) do not."""
+    assert I.long_row(239_206_400)
+    for L in (2_048, 1_462, 3_650, 620):
+        assert not I.long_row(L), L
+
+
+@pytest.mark.parametrize("nan_knot", [False, True])
+def test_plain_long_row_matches_jax_interp_ramp(rng, nan_knot):
+    """The plain K6 on one row of 262,144 knots, Q = 64, against the JAX
+    package's ``interp_ramp`` in float64 (``interp_rows`` would take
+    ``jnp.interp`` there, which does not follow ``interp_ramp`` on NaN
+    knots)."""
+    L = 262_144
+    xp = np.sort(rng.normal(0, 5, L))
+    fp = np.cumsum(rng.uniform(0, 1, L))
+    if nan_knot:
+        xp[L - 3] = np.nan
+    q = _queries(rng, np.nan_to_num(xp, nan=0.0)[None], 64)[0]
+    want = np.asarray(ji.interp_ramp(jnp.asarray(q), jnp.asarray(xp), jnp.asarray(fp)))
+    got = batched_interp_plain(_t(xp[None]), _t(fp[None]), _t(q[None])).numpy()[0]
+    _same(got, want)
+    if nan_knot:
+        assert np.isnan(got[~np.isnan(q) & (q >= xp[0]) & (q <= xp[-1])]).all()

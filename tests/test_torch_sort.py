@@ -2,8 +2,10 @@
 versions of its three forms against the Pallas kernel of
 ``skdownscale_tpu/ops/pallas/sort_kernel.py`` in interpret mode, at the
 shapes and special rows of ``tests/test_sort_kernel.py``; the stable tie
-order; the TPU kernel's pad-position fault (ROADMAP F8); and the BCSD row
-sort sites, which route 256 < L <= K9_MAX_LEN to K9.
+order; the TPU kernel's pad-position fault (ROADMAP F8); numpy models of
+the CUDA kernel's routes (the in-shared-memory radix sort, the long route
+above K9_MAX_LEN, the unsort's index maps); and the BCSD row sort sites,
+which route 256 < L to K9.
 
 Values and unsorts are compared bitwise.  Positions are compared exactly
 where a row has no tied keys; the Pallas kernel leaves the order of ties
@@ -228,8 +230,166 @@ def test_radix_model_matches_the_plain_stable_sort_bitwise(rng, L, kind):
     npt.assert_array_equal(_bits(vals), _bits(K.sort_rows_plain(torch.from_numpy(x)).numpy()))
 
 
+# the long route (L > K9_MAX_LEN): a block a row, 8 warps of 16 items a
+# lane, tiles of 4,096 taken in order (kLongWarps, kLongItems of
+# csrc/sort_rows.cu)
+LONG_WARPS, LONG_ITEMS = 8, 16
+
+
+def _long_radix_model(x):
+    """(sorted values, int32 positions) of float32 rows ``x`` longer than
+    ``K9_MAX_LEN`` as the long route computes them.  One sweep counts all
+    four digits and the AND / OR of the keys; each pass's exclusive scan of
+    its counts starts its running offsets.  Each pass that is not skipped
+    takes the row's tiles in order: the tile's warps rank their items in
+    (i, l) order, an exclusive scan in (digit, warp) order orders the tile
+    by digit, and each digit's run goes to the row at the pass's running
+    offset, which then advances by the tile's count.  Keys and 32-bit
+    positions pass between the workspace and the outputs in turns, the
+    last pass writing the outputs."""
+    B, L = x.shape
+    chunk = 32 * LONG_ITEMS
+    tile = LONG_WARPS * chunk
+    ukeys = _keys(x).view(np.uint32) ^ np.uint32(0x80000000)
+    out_k = np.empty_like(ukeys)
+    out_p = np.empty((B, L), np.int32)
+    for b in range(B):
+        key = ukeys[b]
+        shifts = (0, 8, 16, 24)
+        hist = [np.bincount((key >> s) & 0xFF, minlength=256) for s in shifts]  # the sweep
+        running = [np.cumsum(h) - h for h in hist]
+        varying = int(np.bitwise_and.reduce(key) ^ np.bitwise_or.reduce(key))
+        active = [p for p, s in enumerate(shifts) if (varying >> s) & 0xFF]
+        bufs = {"out": (np.empty(L, np.uint32), np.empty(L, np.int32)),
+                "work": (np.empty(L, np.uint32), np.empty(L, np.int32))}
+        src_k, src_p = key, np.arange(L, dtype=np.int32)
+        for i, p in enumerate(active):
+            dst = "out" if (len(active) - 1 - i) % 2 == 0 else "work"
+            dst_k, dst_p = bufs[dst]
+            assert dst_k is not src_k  # a pass never writes what it reads
+            run = running[p].copy()
+            for t0 in range(0, L, tile):
+                tk, tp = src_k[t0:t0 + tile], src_p[t0:t0 + tile]
+                n = tk.size
+                d = ((tk >> shifts[p]) & 0xFF).astype(np.int64)
+                n_warps = -(-n // chunk)
+                counts = np.zeros((LONG_WARPS, 256), np.int64)
+                local = np.empty(n, np.int64)
+                for w in range(n_warps):  # (i, l) order is element order in the chunk
+                    dw = d[w * chunk:(w + 1) * chunk]
+                    order = np.argsort(dw, kind="stable")
+                    first = np.searchsorted(dw[order], dw[order], side="left")
+                    local[w * chunk + order] = np.arange(dw.size) - first
+                    counts[w] = np.bincount(dw, minlength=256)
+                flat = counts.T.ravel()  # (digit, warp) order
+                base = (np.cumsum(flat) - flat).reshape(256, LONG_WARPS).T
+                sorted_idx = base[np.arange(n) // chunk, d] + local  # the tile ordered by digit
+                npt.assert_array_equal(np.sort(sorted_idx), np.arange(n))
+                total = counts.sum(0)
+                start = np.cumsum(total) - total
+                r = run[d] + sorted_idx - start[d]  # gofs[d] + tile-sorted index
+                dst_k[r], dst_p[r] = tk, tp
+                run += total
+            npt.assert_array_equal(run, running[p] + hist[p])
+            src_k, src_p = dst_k, dst_p
+        assert not active or src_k is bufs["out"][0]
+        out_k[b], out_p[b] = src_k, src_p
+    ordered = (out_k ^ np.uint32(0x80000000)).view(np.int32)
+    bits = np.where(ordered >= 0, ordered, np.invert(ordered ^ np.int32(-(2**31))))
+    return bits.view(np.float32), out_p
+
+
+@pytest.mark.parametrize("kind", ["specials", "nan_zero"])
+@pytest.mark.parametrize("L", [8193, 10957, 20000])
+def test_long_radix_model_matches_the_plain_stable_sort_bitwise(rng, L, kind):
+    """The long route's tile-ordered stable LSD passes with 32-bit positions
+    and the constant-digit skip, at one past K9_MAX_LEN, a 30-year daily
+    record and 20,000, give the stable sort's values and positions."""
+    x = _specials(rng, 3, L) if kind == "specials" else _nan_zero_rows(rng, 3, L)
+    x[-1] = np.float32(283.5) + rng.normal(0, 1, L).astype(np.float32)  # a constant top byte
+    vals, pos = _long_radix_model(x)
+    want_v, want_p = K.sort_rows_with_positions_plain(torch.from_numpy(x))
+    npt.assert_array_equal(_bits(vals), _bits(want_v.numpy()))
+    npt.assert_array_equal(pos, want_p.numpy())
+    npt.assert_array_equal(_bits(vals), _bits(K.sort_rows_plain(torch.from_numpy(x)).numpy()))
+
+
+# the unsort's warp route: kUnsortWarps rows (warps) a block
+UNSORT_WARPS = 8
+
+
+def _unsort_writes(route, vals, pos):
+    """The unsort as the kernel's loops run it on ``route`` (``warp``: warp
+    w of block b takes row b * UNSORT_WARPS + w, a lane the 16-byte words
+    lane, lane + 32, ... of the row where L is a multiple of 4, else its
+    elements; ``scatter``: thread t takes elements 4t..4t+3 of the flat
+    array, its row from 4t): (out, how often each out element was written,
+    how often each element of a row's shared slice was written)."""
+    B, L = vals.shape
+    out = np.full(B * L, np.nan, np.float32)
+    written = np.zeros(B * L, np.int64)
+    slice_writes = np.zeros(B * L, np.int64)
+    if route == "warp":
+        blocks = -(-B // UNSORT_WARPS)
+        rows = np.arange(blocks * UNSORT_WARPS)
+        rows = rows[rows < B]  # a warp past the last row returns
+        width = 4 if L % 4 == 0 else 1
+        buf = np.full((B, L), np.nan, np.float32)
+        for lane in range(32):
+            cols = (np.arange(lane, L // width, 32)[:, None] * width + np.arange(width)).ravel()
+            p = pos[rows][:, cols]
+            ok = (p >= 0) & (p < L)
+            rr = np.broadcast_to(rows[:, None], p.shape)
+            buf[rr[ok], p[ok]] = vals[rows][:, cols][ok]
+            np.add.at(slice_writes, rr[ok] * L + p[ok], 1)
+        for lane in range(32):  # after __syncwarp
+            cols = (np.arange(lane, L // width, 32)[:, None] * width + np.arange(width)).ravel()
+            flat = (rows[:, None] * L + cols).ravel()
+            out[flat] = buf[rows][:, cols].ravel()
+            np.add.at(written, flat, 1)
+        return out.reshape(B, L), written, slice_writes
+    e0 = 4 * np.arange(-(-B * L // 4))
+    base = e0 - e0 % L  # the row of element 4t
+    for k in range(4):
+        e = e0 + k
+        if L % 4:  # element by element, stepping into the next row
+            base = np.where(e - base == L, base + L, base)
+        keep = e < B * L
+        p = pos.ravel()[e[keep]]
+        ok = (p >= 0) & (p < L)
+        dest = base[keep][ok] + p[ok]
+        out[dest] = vals.ravel()[e[keep][ok]]
+        np.add.at(written, dest, 1)
+    return out.reshape(B, L), written, written
+
+
+@pytest.mark.parametrize("route,B,L", [
+    *(("warp", B, L) for B, L in [(6143, 304), (17, 620), (9, 37), (3, 1024)]),
+    *(("scatter", B, L) for B, L in [(6143, 304), (17, 620), (9, 37), (5, 10957)]),
+])
+def test_unsort_routes_write_every_element_once_inside_its_row(rng, route, B, L):
+    """The unsort's short-row warp route and the straight scatter, modelled
+    loop by loop, write every element of every row once and inside its row,
+    at row counts that leave a block of UNSORT_WARPS rows part full; the
+    result is the plain unsort's, bitwise.  A position outside [0, L) is
+    skipped."""
+    x = rng.normal(0, 5, (B, L)).astype(np.float32)
+    vals = rng.normal(0, 1, (B, L)).astype(np.float32)
+    _, pos = K.sort_rows_with_positions_plain(torch.from_numpy(x))
+    pos = pos.numpy()
+    out, written, slice_writes = _unsort_writes(route, vals, pos)
+    npt.assert_array_equal(written, 1)
+    npt.assert_array_equal(slice_writes, 1)
+    want = K.unsort_rows_plain(torch.from_numpy(vals), torch.from_numpy(pos)).numpy()
+    npt.assert_array_equal(_bits(out), _bits(want))
+    bad = pos.copy()
+    bad[0, 0], bad[-1, -1] = L, -1  # skipped: their targets stay unwritten
+    _, written, slice_writes = _unsort_writes(route, vals, bad)
+    assert written.max() == 1 and slice_writes.sum() == B * L - 2 and slice_writes.max() == 1
+
+
 # ----------------------------------------------------------------------
-# the BCSD row sort sites: 256 < L <= K9_MAX_LEN goes to K9
+# the BCSD row sort sites: 256 < L goes to K9
 # ----------------------------------------------------------------------
 
 
@@ -241,10 +401,10 @@ def _equal_groups(G, L):
 
 @pytest.mark.parametrize("L", [620, K.K9_MAX_LEN + 1])
 def test_sort_within_groups_routes_long_groups_bitwise(rng, L):
-    """``_sort_within_groups`` at the dense daily fit's L = 620 (K9) and
-    above ``K9_MAX_LEN`` (plain) equals ``count_sort_segments_plain``
-    bitwise; at 620 also the JAX site (``grouped.py:170``) with the Pallas
-    K9 forced in interpret mode."""
+    """``_sort_within_groups`` at the dense daily fit's L = 620 and above
+    ``K9_MAX_LEN`` (K9's long route on the card) equals
+    ``count_sort_segments_plain`` bitwise; at 620 also the JAX site
+    (``grouped.py:170``) with the Pallas K9 forced in interpret mode."""
     from skdownscale_tpu.models import grouped as JG
     from skdownscale_tpu.ops import rowsort
     from skdownscale_tpu.utils.timeindex import PaddedGroups as JPG

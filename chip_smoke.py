@@ -58,7 +58,9 @@ with a non-zero exit at the first failure, it:
    with its own 3,650 knots and values, 3,650 queries, taken from a
    one-rotation ``mbcn_correct``), and times both, with each launch's
    shape (staged or not, threads and shared bytes a block, resident blocks
-   an SM, blocks in the persistent grid);
+   an SM, blocks in the persistent grid); then one row of 2^30 + 2^24
+   knots with half its 2,048 queries in the top 2^25 knots, where the
+   binary search's lo + hi would pass INT32_MAX (ROADMAP P2);
 9. config 9b, this slice's main path: fits ``PointWiseDownscaler(
    TrendAwareQuantileMappingRegressor(QuantileMappingReressor(
    extrapolate="both")))`` over 1,460 days from 1990-01-01 and predicts 730
@@ -97,11 +99,14 @@ with a non-zero exit at the first failure, it:
     windows (512 cells x 366 windows x 620) and adversarial rows (NaN
     payloads including the bits 0x7fffffff, +-0, +-inf, heavy ties,
     all-equal rows, L = 1, 7, 37, 304, 620, 1,025, 3,650 and K9_MAX_LEN,
-    with row counts that leave a block of four rows part full, and on the
-    long route 8,193, 10,957 and 55,152) and 30-year daily rows (6,144 x
-    10,957), and times each form beside its bound, its plain version, one
+    with row counts that leave a block of four rows part full, and above
+    it 8,193, 10,957, each form's K9_SMEM_MAX and one past it, 23,741,
+    55,152, the longest cluster row and one past it, 65,536 and 65,537),
+    30-year daily rows (6,144 x 10,957) and 1950-2014 daily rows (2,048 x
+    23,741), and times each form beside its bound, its plain version, one
     PyTorch call and ``torch.sort(keys, stable=True)``, with each shape's
-    sort and unsort routes;
+    routes (the launcher's against the plain-Python rule, and each launch
+    counted on its route);
 16. config 8, this slice's main path: ``mbcn_grid`` on three 3-variable
     daily Datasets (obs, hist, fut; 3,650 days each; data as
     bench.py:731-736) of 2,048 cells (32 x 64, about 5% NaN cells), 20
@@ -115,9 +120,10 @@ with a non-zero exit at the first failure, it:
     month-length rows;
 18. config 8b: 16,384 valid cells (128 x 136, 1,024 NaN cells) in
     2,048-cell chunks, one timed run of the grid runner; then config 8 at
-    30 years (10,957 days, MBCn's usual calibration period, K9's long
-    route): 22 launches of each K9 form and no plain version, 16 cells
-    against the CPU float64 path by config 8's limits, wall and device time;
+    30 years (10,957 days, MBCn's usual calibration period, K9's
+    shared-memory route): 22 launches of each K9 form, each on its route,
+    and no plain version, 16 cells against the CPU float64 path by config
+    8's limits, wall and device time;
 19. config 7 (BASELINE config 7): ``PointWiseDownscaler(ZScoreRegressor(
     window_width=31))`` fit and predict on 65,536 cells (256 x 256, about
     5% NaN cells) x 7,305 days from 1990-01-01 (data as bench.py:452-471;
@@ -198,7 +204,8 @@ with a non-zero exit at the first failure, it:
     seed and arguments, each within the limit that ``EXAMPLES`` names for
     it.
 
-The line before the last is a JSON object with each kernel's launches by
+The line before that names the main path's K9 launches by route; the line
+before the last is a JSON object with each kernel's launches by
 its path, error, times, bound and the one PyTorch call that computes the
 same function (where there is one); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -213,8 +220,9 @@ at config 8's fut block, config 9b's two calls, rows shaped as config G's
 ladder and mesh G's sketch row and three long rows with NaN knots (K6), at
 config 2's shape and config 5's K2 shape (K1, K2), config 9a's rows and
 20-year daily rows (K2), and at the monthly, dense daily and config 8 rows
-(K9's unsort, ``scatter_`` beside) and 30-year daily rows (K9's sort with
-positions), with each build's launch shape, registers and spills.
+(K9's unsort, ``scatter_`` beside) and 30-year, 1950-2014 and 1950-2100
+daily rows (K9's three forms on each route above 8,192), with each build's
+launch shape, registers and spills.
 
 ``python3 chip_smoke.py --pipeline`` runs only the pipeline phase (23),
 to time a change of ``parallel/pipeline.py`` against another tree's in
@@ -299,6 +307,9 @@ MB_LAT, MB_LON, MB_VALID, MB_CHUNK = 128, 136, 16_384, 2_048
 # config 8 at 30 years: MBCn's usual calibration period (1981-2010, 10,957
 # days), K9's long route; M30_REF_CELLS cells against the CPU float64 path
 M30_T, M30_REF_CELLS = 10_957, 16
+# 1950-2014 daily (the CMIP6 historical experiment): K9's cluster route
+# with positions, the shared-memory route without
+K9_1950_2014 = 23_741
 # launches of each K9 form in one mbcn_correct: one a rotation (the rotated
 # obs sort, the hist sort with positions, the unsort of the mapped values)
 # and one in each of the two closing reorders; the QDM margins sort with
@@ -374,6 +385,9 @@ TOL_FALLBACK = (2e-3, 5.0)  # p99.9, max |diff| in K
 # outputs within 1e-2 K.
 G_TIME, G_Q, G_REF_CELLS_OUT = 3_650, 2_048, 512
 G_CELLS_LADDER = 239_206_400  # one ladder row: the valid samples of config G's grid
+# ROADMAP P2: a K6 row long enough that lo + hi of its binary search passes
+# INT32_MAX (2^30 knots and more); xp and fp take 8.7 GB
+P2_L = 2**30 + 2**24
 TOL_G_LADDER = 1e-2
 TOL_G = (2e-3, 1e-2)
 TOL_G_LINEAR = (1e-4, 1e-2, 1e-2)
@@ -1250,7 +1264,42 @@ def interp_kernel_phase(dev):
             results["batched_interp"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         del xp, fp, q, got
+    p2_row_check(g, dev)
     return results
+
+
+def p2_row_check(g, dev):
+    """ROADMAP P2: K6's binary search on one row of P2_L = 2^30 + 2^24
+    knots (a non-decreasing float32 ramp made on the card, its values a
+    scaled copy), where lo + hi passes INT32_MAX for a query in the top
+    2^25 knots: 2,048 queries, half there and most of the rest in the top
+    quarter, a NaN and one below the first knot, bitwise against the plain
+    version, synchronised right after the launch so that a read outside
+    the row surfaces there.  About 9 GB, freed before the next phase."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import interp as I
+
+    L, Q = P2_L, G_Q
+    xp = torch.arange(L, dtype=torch.int32, device=dev).to(torch.float32)[None]
+    fp = xp * 2.0**-10
+    top = L - 1 - torch.randint(0, 2**25, (Q // 2,), generator=g, device=dev)
+    quarter = L - 1 - torch.randint(0, L // 4, (Q // 2 - 2,), generator=g, device=dev)
+    q = xp[0, torch.cat([top, quarter])] + torch.rand(Q - 2, generator=g, device=dev) * 100.0
+    q = torch.cat([q, torch.tensor([float("nan"), -1.0], device=dev)])[None].contiguous()
+    got = I.batched_interp(xp, fp, q)
+    torch.cuda.synchronize()
+    err = bitwise_err(got, I.batched_interp_plain(xp, fp, q), "K6 P2 row")
+    ms = cuda_ms(lambda: I.batched_interp(xp, fp, q), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: I.batched_interp_plain(xp, fp, q), iters=3, warmup=1)
+    n_bytes = 4 * (2 * L + 2 * Q)
+    b_ms, b_by = bound(n_bytes, Q * (np.ceil(np.log2(L)) + 15))
+    print(f"kernel batched_interp P2 row (1 row, L={L}, Q={Q}, {Q // 2} queries in the top 2^25 "
+          f"knots): bitwise equal to plain (max |diff| {err}), route "
+          f"{I.launch_geometry(xp, fp, q)['route']}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e9:.4f} GB)")
+    del xp, fp, q, got
+    torch.cuda.empty_cache()
 
 
 def ladder_row(dev, n):
@@ -1283,10 +1332,12 @@ def long_nan_rows(g, dev, L=1_000_003, Q=G_Q):
 
 def ptxas_of(log, kernel):
     """Registers and spills that ``-Xptxas -v`` reported for the first
-    kernel whose mangled name holds ``kernel``."""
+    kernel whose mangled name holds ``kernel`` (or each of a tuple of
+    fragments)."""
+    frags = (kernel,) if isinstance(kernel, str) else kernel
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
+        if "Compiling entry function" in line and all(f in line for f in frags):
             spill = used = ""
             for later in lines[i + 1:]:
                 if "spill stores" in later:
@@ -1315,9 +1366,10 @@ TRIALS = {
     "sort_rows": (("the unsort a block a row", ("SDT_K9_UNSORT_ROUTE=1",)),
                   ("the unsort a warp a row up to 1,024", ("SDT_K9_UNSORT_ROUTE=2",)),
                   ("the unsort a straight scatter", ("SDT_K9_UNSORT_ROUTE=3",)),
-                  ("the long route at 8 items a lane", ("SDT_K9_LONG_ITEMS=8",)),
-                  ("the long route at 24 items a lane", ("SDT_K9_LONG_ITEMS=24",)),
-                  ("the long route at 32 items a lane", ("SDT_K9_LONG_ITEMS=32",))),
+                  ("the device-memory route above 8,192", ("SDT_K9_LONG_ROUTE=1",)),
+                  ("shared memory at 16 warps of 24 items", ("SDT_K9_SMEM_WARPS=16", "SDT_K9_SMEM_ITEMS=24")),
+                  ("shared memory at 32 warps of 8 items", ("SDT_K9_SMEM_ITEMS=8",)),
+                  ("clusters of 16 warps of 28 items", ("SDT_K9_CLUSTER_WARPS=16", "SDT_K9_CLUSTER_ITEMS=28"))),
     "rank_map": (("one key a thread on the packed route", ("SDT_RANK_PACKED_ITEMS=1",)),
                  ("two keys a thread on the packed route", ("SDT_RANK_PACKED_ITEMS=2",)),
                  ("512 threads a packed block", ("SDT_RANK_PACKED_THREADS=512",)),
@@ -1341,8 +1393,9 @@ def trials(dev, sources):
     long rows with NaN knots, K1 and K2 at config 2's and config 5's K2
     shape, K2 at config 9a's rows and at 20-year daily rows (the block
     route), K9's unsort at the monthly, dense daily and config 8 rows (with
-    ``scatter_`` timed beside) and its sort with positions at 30 years of
-    days: outputs bitwise equal to the default's, CUDA-event times in turns
+    ``scatter_`` timed beside) and its three forms at 30 years of days,
+    1950-2014 and 1950-2100: outputs bitwise equal to the default's,
+    CUDA-event times in turns
     (default, each variant, default again) and each launch's shape."""
     import concurrent.futures
 
@@ -1425,7 +1478,7 @@ def trials(dev, sources):
             del xp, fp, q
 
     if "sort_rows" in sources:
-        unsort_kernels = {"warp": "unsort_rows_warp_kernel", "block": "unsort_rows_kernel",
+        unsort_kernels = {"warp": "unsort_rows_warp_kernel", "block": "unsort_rows_kernelILb",
                           "scatter": "unsort_rows_scatter_kernel"}
         for name, B, L in (("monthly", M_CELLS * M_D, 304), ("dense daily windows", 512 * 366, 620),
                            ("config 8", M_CELLS * M_D, M_T)):
@@ -1440,17 +1493,35 @@ def trials(dev, sources):
                   lambda lib: f"unsort route {SR.unsort_route(L, lib)}",
                   lambda label: unsort_kernels[SR.unsort_route(L, libs[("sort_rows", label)])])
             del x, v, pos, pos64
-        B, L = M_CELLS * M_D, M30_T
-        x = torch.from_numpy(k9_rows(rng, B, L, "gauss")).to(dev)
+        def k9_kernel(route, wp):
+            """The ptxas fragments of the sort kernel of ``route``."""
+            return {"smem": ("sort_rows_smem_kernel", f"ELb{int(wp)}ELb0E"),
+                    "cluster": ("sort_rows_smem_kernel", f"ELb{int(wp)}ELb1E"),
+                    "device": (f"sort_rows_long_kernelILb{int(wp)}E",)}[route]
 
-        def same(got, want, label):
-            bitwise_err(got[0], want[0], f"K9 30-year daily trial {label}")
-            _check(torch.equal(got[1], want[1]), f"K9 30-year daily trial {label}: positions differ")
+        for name, B, L in (("30-year daily", M_CELLS * M_D, M30_T), ("1950-2014 daily", M_CELLS, K9_1950_2014),
+                           ("1950-2100 daily", 512, 55_152)):
+            x = torch.from_numpy(k9_rows(rng, B, L, "gauss")).to(dev)
+            v = torch.from_numpy(rng.standard_normal((B, L), dtype=np.float32)).to(dev)
+            _, pos = SR.launch_sort(libs[("sort_rows", "default")], x, True)
+            for wp in (False, True):
+                form = "sort with positions" if wp else "sort"
 
-        print(f"trials K9 sort with positions 30-year daily ({B} x {L})")
-        turns("sort_rows", lambda lib: SR.launch_sort(lib, x, True), same,
-              lambda lib: "long route", "sort_rows_long_kernelILb1E")
-        del x
+                def same(got, want, label, wp=wp, form=form):
+                    bitwise_err(got[0] if wp else got, want[0] if wp else want, f"K9 {form} {name} trial {label}")
+                    _check(not wp or torch.equal(got[1], want[1]), f"K9 {form} {name} trial {label}: positions differ")
+
+                print(f"trials K9 {form} {name} ({B} x {L})")
+                turns("sort_rows", lambda lib, wp=wp: SR.launch_sort(lib, x, wp), same,
+                      lambda lib, wp=wp: (f"route {SR.sort_route(L, wp, lib)}, cluster blocks a row "
+                                          f"{SR.built_cluster_size(L, wp, lib)}"),
+                      lambda label, wp=wp: k9_kernel(SR.sort_route(L, wp, libs[("sort_rows", label)]), wp))
+            print(f"trials K9 unsort {name} ({B} x {L})")
+            turns("sort_rows", lambda lib: SR.launch_unsort(lib, v, pos),
+                  lambda got, want, label: bitwise_err(got, want, f"K9 unsort {name} trial {label}"),
+                  lambda lib: f"unsort route {SR.unsort_route(L, lib)}",
+                  lambda label: unsort_kernels[SR.unsort_route(L, libs[("sort_rows", label)])])
+            del x, v, pos
 
     if "rank_map" in sources:
         c5_rows, c5_g, c5_l = config5_k2_shape()
@@ -1989,7 +2060,8 @@ def k9_rows(rng, rows, L, kind):
     return x
 
 
-# (name, rows, L, data, timed): config 8's rows first (the JSON line)
+# (name, rows, L, data, timed): config 8's rows first (the JSON line); L
+# None is K9_MAX_LEN, a function of the module an edge of its routes
 K9_CASES = [
     ("config 8", M_CELLS * M_D, M_T, "gauss", True),
     ("monthly", M_CELLS * M_D, 304, "gauss", True),
@@ -2003,19 +2075,33 @@ K9_CASES = [
     ("adversarial 7", 8_192, 7, "adversarial", False),
     ("adversarial 1", 4_096, 1, "adversarial", False),
     ("adversarial max", 64, None, "adversarial", False),  # L = K9_MAX_LEN
-    # the long route: one past K9_MAX_LEN, 30 years of days, 1950-2100
+    # one past K9_MAX_LEN, 30 years of days, each form's K9_SMEM_MAX and one
+    # past it, 1950-2014 and 1950-2100 days, the longest cluster row and
+    # one past it, 65,536 and 65,537 (the device-memory route)
     ("adversarial 8193", 512, 8_193, "adversarial", False),
     ("adversarial 10957", 512, M30_T, "adversarial", False),
+    ("adversarial smem max with positions", 128, lambda S: S.K9_SMEM_MAX[True], "adversarial", False),
+    ("adversarial smem max with positions + 1", 128, lambda S: S.K9_SMEM_MAX[True] + 1, "adversarial", False),
+    ("adversarial smem max", 128, lambda S: S.K9_SMEM_MAX[False], "adversarial", False),
+    ("adversarial smem max + 1", 128, lambda S: S.K9_SMEM_MAX[False] + 1, "adversarial", False),
+    ("adversarial 23741", 128, K9_1950_2014, "adversarial", False),
     ("adversarial 55152", 64, 55_152, "adversarial", False),
+    ("adversarial cluster max", 64, lambda S: S.CLUSTER_MAX * S.CLUSTER_TILE, "adversarial", False),
+    ("adversarial cluster max + 1", 64, lambda S: S.CLUSTER_MAX * S.CLUSTER_TILE + 1, "adversarial", False),
+    ("adversarial 65536", 32, 65_536, "adversarial", False),
+    ("adversarial 65537", 32, 65_537, "adversarial", False),
     ("30-year daily", M_CELLS * M_D, M30_T, "gauss", True),
+    ("1950-2014 daily", M_CELLS, K9_1950_2014, "gauss", True),
 ]
 
 
 def sort_kernel_phase(rng, dev):
     """K9's three forms bitwise against their plain versions (values and
     positions) at every case of K9_CASES, the unsort round trip bitwise,
-    and each form timed beside its bound, its plain version, the one
-    PyTorch call that computes it and ``torch.sort(keys, stable=True)``."""
+    each form's route (the launcher's, the plain-Python rule's and the
+    launch counted on it), and each form timed beside its bound, its plain
+    version, the one PyTorch call that computes it and ``torch.sort(keys,
+    stable=True)``."""
     import torch
 
     from skdownscale_tpu_torch.kernels import sort_rows as S
@@ -2023,14 +2109,24 @@ def sort_kernel_phase(rng, dev):
 
     results = {}
     for name, B, L, kind, timed in K9_CASES:
-        L = L or S.K9_MAX_LEN
+        L = S.K9_MAX_LEN if L is None else L(S) if callable(L) else L
+        routes = {"sort_rows": S.sort_route(L, False), "sort_rows_with_positions": S.sort_route(L, True),
+                  "unsort_rows": S.unsort_route(L)}
+        built = {"sort_rows": S.sort_route(L, False, S._lib()),
+                 "sort_rows_with_positions": S.sort_route(L, True, S._lib()),
+                 "unsort_rows": S.unsort_route(L, S._lib())}
+        _check(routes == built, f"K9 {name}: the launcher's routes {built} are not the rule's {routes}")
         x = torch.from_numpy(k9_rows(rng, B, L, kind)).to(dev)
         v = torch.from_numpy(rng.standard_normal((B, L), dtype=np.float32)).to(dev)
+        S.ROUTE_LAUNCHES.clear()
         s1 = S.sort_rows(x)
         s2, p2 = S.sort_rows_with_positions(x)
         u = S.unsort_rows(v, p2)
         back = S.unsort_rows(s2, p2)
         torch.cuda.synchronize()
+        counted = {(form, r): 2 if form == "unsort_rows" else 1 for form, r in routes.items()}
+        _check(dict(S.ROUTE_LAUNCHES) == counted,
+               f"K9 {name}: launches by route {dict(S.ROUTE_LAUNCHES)}, not {counted}")
         errs = {"sort_rows": bitwise_err(s1, S.sort_rows_plain(x), f"K9 sort_rows {name}")}
         w2, wp2 = S.sort_rows_with_positions_plain(x)
         errs["sort_rows_with_positions"] = bitwise_err(s2, w2, f"K9 sort_rows_with_positions {name}")
@@ -2038,9 +2134,12 @@ def sort_kernel_phase(rng, dev):
         errs["unsort_rows"] = bitwise_err(u, S.unsort_rows_plain(v, p2), f"K9 unsort_rows {name}")
         _check(torch.equal(back.view(torch.int32), x.view(torch.int32)),
                f"K9 {name}: unsort of the sorted rows is not the input")
+        clusters = [S.cluster_size(L) if routes[f] == "cluster" else 0
+                    for f in ("sort_rows", "sort_rows_with_positions")]
         print(f"kernel K9 {name} ({B} x {L}, {kind}): the three forms bitwise equal to their plain "
-              f"versions, positions equal, round trip exact; sort route "
-              f"{'long' if L > S.K9_MAX_LEN else 'shared memory'}, unsort route {S.unsort_route(L)}")
+              f"versions, positions equal, round trip exact; routes: sort {routes['sort_rows']}, "
+              f"with positions {routes['sort_rows_with_positions']}, unsort {routes['unsort_rows']}"
+              + (f" (cluster blocks a row {clusters[0]} / {clusters[1]})" if any(clusters) else ""))
         if timed:
             keys = to_ordered_int(x)
             pos = p2.long()
@@ -2065,10 +2164,11 @@ def sort_kernel_phase(rng, dev):
                 # compulsory bytes; a sort compares each element log2 L times
                 ops = 0 if form == "unsort_rows" else n * np.log2(max(L, 2))
                 b_ms, b_by = bound(bytes_per * n, ops)
-                print(f"kernel {form} {name} ({B} x {L}): kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
-                      f"({b_by}), plain {plain_ms:.4f} ms, one PyTorch call {lib:.4f} ms, "
-                      f"torch.sort(keys, stable=True) {stable_ms:.4f} ms, {ms / b_ms:.1f}x its bound; "
-                      f"launches queued: kernel {q_ms:.4f} ms, one PyTorch call {q_lib:.4f} ms")
+                print(f"kernel {form} {name} ({B} x {L}, route {routes[form]}): kernel {ms:.4f} ms, "
+                      f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, one PyTorch call "
+                      f"{lib:.4f} ms, torch.sort(keys, stable=True) {stable_ms:.4f} ms, "
+                      f"{ms / b_ms:.1f}x its bound; launches queued: kernel {q_ms:.4f} ms, one "
+                      f"PyTorch call {q_lib:.4f} ms")
                 if name == "config 8":  # the main path's shape goes in the JSON line
                     results[form] = {"max_abs_err": errs[form], "ms": ms, "plain_ms": plain_ms,
                                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
@@ -2197,16 +2297,34 @@ def mbcn_permutation_check(label, out_h, out_f, blocks, kinds, months):
           f"({len(segments)} segment{'s' if len(segments) > 1 else ''})")
 
 
+def k9_routes(label, L, seen):
+    """Print a run's K9 launches by route (``ROUTE_LAUNCHES``) and return
+    them by "label: form on the route route"; with a row length ``L``, each
+    form must have launched on the route its rule gives at ``L`` alone."""
+    from skdownscale_tpu_torch.kernels import sort_rows as S
+
+    _check({form for form, _ in seen} == set(K9_FORMS), f"{label}: K9 launches by route {seen}")
+    if L is not None:
+        want = {"sort_rows": S.sort_route(L, False), "sort_rows_with_positions": S.sort_route(L, True),
+                "unsort_rows": S.unsort_route(L)}
+        _check(all(r == want[form] for form, r in seen),
+               f"{label}: K9 launches by route {seen}, the rule gives {want}")
+    print(f"{label}: K9 launches by route " + ", ".join(f"{form} {r} {n}" for (form, r), n in sorted(seen.items())))
+    return {f"{label}: {form} on the {r} route": n for (form, r), n in sorted(seen.items())}
+
+
 def mbcn_phase(label, rng, card, dev, group):
     """Config 8 (``group=None``) or config 8 monthly: warm-up and one timed
     ``mbcn_grid`` on the card with the launch counts set to 0 just before
     and read just after; K9 and K6 launch counts against the code's, NaN
     cells NaN, the permutation check, the margins and the output by depth
     against the CPU float64 path on M_REF_CELLS cells, wall, cells/s, peak
-    memory, and for config 8 the stages.  Returns the launches."""
+    memory, and for config 8 the stages.  Returns the launches, and K9's by
+    route under "routes"."""
     import torch
 
     from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.kernels import sort_rows as SR
     from skdownscale_tpu_torch.models import mbc as PM
 
     nan_cells = rng.random(M_CELLS) < NAN_CELL_SHARE
@@ -2221,10 +2339,12 @@ def mbcn_phase(label, rng, card, dev, group):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
+    SR.ROUTE_LAUNCHES.clear()
     t0 = time.perf_counter()
     oh, of = run()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    routes = k9_routes(label, M_T if group is None else None, dict(SR.ROUTE_LAUNCHES))
     peak = torch.cuda.max_memory_allocated()
 
     variables = list(Y.data_vars)
@@ -2309,7 +2429,7 @@ def mbcn_phase(label, rng, card, dev, group):
         print(f"{label}: stages of one mbcn_grid (ms, host clock, synchronised): "
               + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
               + f"; device share of the wall {stages['correct device'] / (wall * 1e3):.4f}; card {card}")
-    return launches
+    return {**launches, "routes": routes}
 
 
 def mbcn_stages(Y, XH, XF, dev):
@@ -2425,10 +2545,12 @@ def mbcn_30y_phase(rng, card, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         LAUNCHES.clear()
+        S.ROUTE_LAUNCHES.clear()
         t0 = time.perf_counter()
         oh, of = run()
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
+        routes = k9_routes(label, M30_T, dict(S.ROUTE_LAUNCHES))
     peak = torch.cuda.max_memory_allocated()
     for form in K9_FORMS:
         _check(launches.get(form, 0) == K9_PER_CORRECT,
@@ -2476,6 +2598,7 @@ def mbcn_30y_phase(rng, card, dev):
           f"{wall:.4f} s, {M_CELLS / wall:.1f} cells/s (host pack, copies and unpack included); "
           f"mbcn_correct on the card {device_ms:.3f} ms (CUDA events); peak device memory "
           f"{peak / 2**30:.3f} GiB; launches {launches}, no plain version; card {card}")
+    return routes
 
 
 # ----------------------------------------------------------------------
@@ -3935,7 +4058,7 @@ def main() -> int:
             launches[form] = l8[form]
         mbcn_phase("config 8 monthly", rng, card, dev, "month")
         config8b_phase(rng, card, dev)
-        mbcn_30y_phase(rng, card, dev)
+        k9_main_routes = {**l8["routes"], **mbcn_30y_phase(rng, card, dev)}
         mark("configs 8, 8 monthly, 8b and 8 at 30 years")
         config7_phase(rng, card, dev)
         mark("config 7")
@@ -3961,6 +4084,8 @@ def main() -> int:
     except (SmokeFailure, subprocess.SubprocessError, OSError, RuntimeError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    print("kernel routes: the K9 launches of the main path's runs by route "
+          + json.dumps(k9_main_routes))
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name], **kernels[name]}
         for name in KERNELS

@@ -158,11 +158,12 @@ __device__ __forceinline__ float finish(const float* xr, const float* fr, int L,
                    : __fadd_rn(f0, __fmul_rn(from_left, slope));
 }
 
-// #{l < L : xr[l] <= q}, for ascending xr
+// #{l < L : xr[l] <= q}, for ascending xr.  The midpoint is lo + (hi - lo)
+// / 2: lo + hi overflows int for a row above 2^30 knots.
 __device__ __forceinline__ int upper_bound(const float* xr, int L, float q) {
   int lo = 0, hi = L;
   while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
+    const int mid = lo + ((hi - lo) >> 1);
     if (xr[mid] <= q) lo = mid + 1; else hi = mid;
   }
   return lo;

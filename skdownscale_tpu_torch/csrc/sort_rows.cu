@@ -17,8 +17,9 @@
 // whose byte is the same in every key of the row is skipped: temperatures
 // near 283 K share their top byte, and an all-equal row skips every pass.
 //
-// Three shapes of the one sort, chosen by L in the launcher (a route by
-// shape; all are this kernel):
+// Five shapes of the one sort, chosen by L in the launcher (a route by
+// shape, sort_route(L, with_pos), mirrored by kernels/sort_rows.sort_route;
+// all are this kernel):
 // * L <= 1,024: a warp a row, four rows a block, ceil(L / 128) * 4 items a
 //   lane.  Each warp has its own slice of shared memory (counters, keys,
 //   positions), so a pass has only __syncwarp and no block barrier.  Rows of
@@ -29,12 +30,57 @@
 //   after the load and three a pass that is not skipped (counters in, scan
 //   done, scatter done): thirteen at most.  Config 8's rows of 3,650 take
 //   10 warps of 12 items a lane.
-// On these two the row lives in shared memory, the position travels as a
-// 16-bit payload (L <= 8,192 < 2^16), widened to int32 at the store, and
-// the final order is stored from registers, striped, so the stores are
-// coalesced.
-// * L > 8,192 (the long route, any L < 2^31): a block a row walks the row
-//   in tiles of kLongWarps * kLongItems * 32 elements.  One sweep reads the
+// On these two the items live in registers between passes, the position
+// travels as a 16-bit payload (L <= 8,192 < 2^16), widened to int32 at the
+// store, and the final order is stored from registers, striped.
+// * 8,192 < L <= K9_SMEM_MAX (the shared-memory route; 16,280 with
+//   positions and 24,424 without, the most that kSmemLimit holds, see
+//   row_capacity): a block of kSmemWarps warps a row.  The block brings its
+//   row into shared memory once by cp.async (16 bytes where the row base is
+//   aligned, as for L a multiple of 4, else 4), and one sweep there turns
+//   the bits into keys and takes their AND / OR.  A pass walks the row in
+//   tiles of kSmemWarps * kSmemItems * 32 = 12,288 elements, from one key
+//   buffer (and 16-bit position buffer) to the other: each warp ranks its
+//   items with rank_digits, thread d turns the warps' counts of digit d
+//   into their places from the pass's running place of d ((digit, warp)
+//   order, stable), and each item is written at its place; the tiles go in
+//   order, so the pass is stable.  Where the row is one tile (30 years of
+//   days), the pass's counts are the tile's and the running place of d
+//   starts at the tile's exclusive scan; a longer row takes each pass's
+//   starting places from the sweep, which then also counts all four
+//   digits (per group of four warps, the lanes of a digit found by nine
+//   ballots: __match_any_sync ran slower on the card).  The last pass's
+//   buffer goes out once, 16-byte stores where aligned, positions widened
+//   to int32: the device-memory traffic is the compulsory 8 B an element
+//   (12 with positions).  Taking each pass's places from the sweep's
+//   counts at every length ran slower on the card (2.94 against 1.86 ms
+//   at 10,957), so a row of one tile counts in the tile.
+//   A warp reads its own counters in a tile's scatter and zeroes them for
+//   the next tile: a __syncwarp between the two keeps lanes that diverged
+//   in the scatter from zeroing a counter another lane has yet to read.
+// * K9_SMEM_MAX < L <= 55,296 (the cluster route): a thread-block cluster
+//   of c = max(2, ceil(L / 13,824)) blocks of kClusterWarps warps, 2 to
+//   kClusterMax = 4, launched by cudaLaunchKernelEx as B * c blocks, so
+//   that each block's elements make one tile of kClusterWarps *
+//   kClusterItems * 32 = 24 * 18 * 32 = 13,824 (two blocks at 1950-2014
+//   daily, four at 1950-2100).  Block r holds elements [r * m, r * m + m) of
+//   the row, m = ceil(L / c).  Each pass: each block ranks its tile,
+//   cluster.sync, each reads every block's counts of the pass's digits
+//   through distributed shared memory and takes its (digit, block) places,
+//   and writes each item into the buffer of the block that holds its place
+//   (mapa and st.shared::cluster), cluster.sync.  The keys stay in the
+//   cluster's shared memory from the load to the store.  A lane holds only
+//   its items' ranks and positions in registers and reads each key from
+//   shared memory where it needs it (the rank, the scatter): so 24 warps of
+//   18 items fit the 80 registers a thread that 768 threads leave, with no
+//   spill (16 warps of 28 items spill 48-52 B with positions and ran 4-9%
+//   slower at 23,741 and 55,152).  Past 55,296 the blocks would walk several
+//   tiles, and the device-memory route ran faster on the card at 65,536;
+//   clusters of at least 3 blocks ran slower at 23,741 (4.00 against 2.77
+//   ms).
+// * above (and every L > 8,192 in the trial build SDT_K9_LONG_ROUTE=1):
+//   the device-memory route (any L < 2^31): a block a row walks the row in
+//   tiles of kLongWarps * kLongItems * 32 elements.  One sweep reads the
 //   row once and counts all four digits (warp-aggregated shared atomics)
 //   and the AND / OR of its keys; an exclusive scan of each count gives
 //   every pass its starting offset per digit.  Each pass that is not
@@ -42,13 +88,13 @@
 //   machinery of radix_sort.cuh (rank_digits, the (digit, warp) scan, the
 //   scatter into shared memory, which orders the tile by digit), writes
 //   the tile out digit run by digit run at the pass's running offset of
-//   each digit, and advances those offsets by the tile's counts.  The tiles
-//   go in order and each is placed stably, so the pass is stable.  Keys and
+//   each digit, and advances those offsets by the tile's counts.  Keys and
 //   int32 positions travel between passes through device memory: a
 //   workspace from the wrapper and the outputs themselves, in turns, so
 //   that the last pass lands in the outputs (the first pass writes the
-//   outputs when an odd number of passes run).  A row of 10,957 days holds
-//   88 KB of keys and positions, which L2 keeps between passes.
+//   outputs when an odd number of passes run).  Each pass moves 8 B an
+//   element (16 with positions) through the L2 and, for the rows in flight
+//   across the card (70-93 MB at 10,957 days), through device memory.
 //
 // Unsort.  The positions of a row are a permutation of 0..L-1, so the
 // unsort is a scatter, out[b, pos[b, i]] = vals[b, i]; a position outside
@@ -59,14 +105,16 @@
 //   values (16 bytes a lane where L is a multiple of 4 and the row bases
 //   are 16-byte aligned, as at 304 and 620), writes smem[pos[i]] =
 //   vals[i], and writes the row out the same way;
-// * a block a row (the first port's kernel): the same through a block's
-//   shared memory, one __syncthreads;
+// * a block a row: the same through a block's shared memory, one
+//   __syncthreads, for every row of floats that a block's shared memory
+//   holds (L <= kUnsortBlockMax = 58,112), with 16-byte reads and writes
+//   on the same condition, else four elements a thread in flight;
 // * a straight scatter in device memory, a thread per 4 elements (16-byte
-//   reads where L is a multiple of 4), as torch's scatter_ does.  Rows
-//   above 8,192 always take it.
+//   reads where L is a multiple of 4), as torch's scatter_ does: random
+//   4-byte writes.  Rows above kUnsortBlockMax take it.
 // By default the launcher takes the warp route up to kUnsortWarpMax, the
-// block route up to 8,192 and the scatter above (chip_smoke.py --trials
-// sort_rows times the three).
+// block route up to kUnsortBlockMax and the scatter above (chip_smoke.py
+// --trials sort_rows times the routes).
 //
 // What bounds them on the H100.  The compulsory traffic is 8 B an element
 // for the sort (12 with positions and for the unsort), 0.05-0.08 ms at
@@ -79,9 +127,12 @@
 // scatter and the read-back); the counter updates and the scatter land on
 // random banks.  So instruction issue, shared-memory bank conflicts and
 // their latency bound it, hidden as far as the resident warps allow, far
-// above the bytes.  The long route adds each pass's 8 B (16 with
-// positions) an element written and read back through L2.  TMA is not
-// used: a row of 3,650 floats is 14,600 B, not a multiple of 16, and the
+// above the bytes.  The shared-memory and cluster routes add the barriers
+// of each tile (two, and one a pass; a cluster.sync or two a pass) and,
+// for rows of more than one tile, a count of each digit (36 ballots an
+// element for the four); the cluster route's places in other blocks are
+// remote shared-memory stores.  TMA is not used: a row of 3,650 or 10,957
+// floats is not a multiple of 16 bytes, odd rows start unaligned, and the
 // compulsory bytes are a small part of the time.
 //
 // Resources (nvcc -Xptxas -v for sm_90a; resident blocks per SM from the
@@ -92,25 +143,49 @@
 // 19,008 / 14,016 B a block of four rows, 6 blocks (24 warps); at 304 (12
 // items) 55 / 55 registers and 11,392 / 8,960 B, 9 blocks (36 warps).
 // Registers, not shared memory, set the resident blocks at every shape; a
-// few instances (16 to 32 items a lane) spill 8-20 B a thread.
+// few instances (16 to 32 items a lane) spill 8-20 B a thread.  The
+// shared-memory route (32 warps of 12 items) takes 64 / 62 registers and
+// row_smem_bytes(L) of shared memory (168,576 / 124,736 B at 10,957): one
+// block, 32 warps, an SM.  The cluster route (24 warps of 18 items) takes
+// 80 / 64 registers and 194,752 / 139,456 B a block of one full tile: one
+// block, 24 warps, an SM.  None spills; chip_smoke.py prints each
+// instance's registers and spills.
 //
 // The C entry points take plain pointers, sizes and the CUDA stream, launch
 // on that stream without synchronising, and return cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "radix_sort.cuh"
 
+namespace cg = cooperative_groups;
+
 // Trial switches (chip_smoke.py --trials sort_rows builds and times each
 // against the default): the unsort's route (0: chosen by L; 1: a block a
-// row up to 8,192; 2: a warp a row up to 1,024, a block a row to 8,192; 3:
-// the straight scatter at every L) and the long route's items a lane.
+// row up to kUnsortBlockMax; 2: a warp a row up to 1,024, a block a row
+// above; 3: the straight scatter at every L); the route of rows above
+// 8,192 (0: chosen by L; 1: the device-memory route, with the unsort's
+// scatter); the warps a block and items a lane of the
+// shared-memory and cluster routes.
 #ifndef SDT_K9_UNSORT_ROUTE
 #define SDT_K9_UNSORT_ROUTE 0
 #endif
-#ifndef SDT_K9_LONG_ITEMS
-#define SDT_K9_LONG_ITEMS 16
+#ifndef SDT_K9_LONG_ROUTE
+#define SDT_K9_LONG_ROUTE 0
+#endif
+#ifndef SDT_K9_SMEM_WARPS
+#define SDT_K9_SMEM_WARPS 32
+#endif
+#ifndef SDT_K9_SMEM_ITEMS
+#define SDT_K9_SMEM_ITEMS 12
+#endif
+#ifndef SDT_K9_CLUSTER_WARPS
+#define SDT_K9_CLUSTER_WARPS 24
+#endif
+#ifndef SDT_K9_CLUSTER_ITEMS
+#define SDT_K9_CLUSTER_ITEMS 18
 #endif
 
 namespace {
@@ -120,17 +195,29 @@ using namespace radix;
 constexpr int kMaxLen = 8192;      // K9_MAX_LEN of kernels/sort_rows.py
 constexpr int kMaxThreads = 1024;  // the unsort's block
 constexpr int kRowsPerBlock = 4;  // warps (rows) a block on the warp route
-// the long route: 8 warps (a thread per digit), a tile of 4,096 elements
+// the device-memory route: 8 warps (a thread per digit), a tile of 4,096
 constexpr int kLongWarps = kBuckets / 32;
-constexpr int kLongItems = SDT_K9_LONG_ITEMS;
+constexpr int kLongItems = 16;  // 8, 24 and 32 ran slower on the card
 constexpr int kTile = kLongWarps * kLongItems * 32;
 static_assert(kTile <= 65536, "tile indices travel as 16-bit payloads");
+// the shared-memory and cluster routes (kernels/sort_rows.py mirrors these)
+constexpr int kSmemLimit = 232448;     // shared memory a block may use
+constexpr int kSmemWarps = SDT_K9_SMEM_WARPS;
+constexpr int kSmemItems = SDT_K9_SMEM_ITEMS;
+constexpr int kClusterWarps = SDT_K9_CLUSTER_WARPS;
+constexpr int kClusterItems = SDT_K9_CLUSTER_ITEMS;
+constexpr int kClusterMin = 2;  // 3 ran slower at 23,741 (4.00 against 2.77 ms)
+constexpr int kClusterMax = 4;
+constexpr int kClusterTile = kClusterWarps * kClusterItems * 32;
+static_assert(kClusterMax * kClusterTile <= 65536, "positions travel as 16-bit payloads");
 // the unsort's warp route: rows (warps) a block, and the longest row
 constexpr int kUnsortWarps = 8;
 constexpr int kUnsortWarpMax = 1024;
+constexpr int kUnsortBlockMax = kSmemLimit / 4;  // a row of floats in a block's shared memory
 constexpr int kScatterThreads = 256;
 
 enum UnsortRoute { kUnsortWarp = 0, kUnsortBlock = 1, kUnsortScatter = 2 };
+enum SortRoute { kRouteWarp = 0, kRouteBlock = 1, kRouteSmem = 2, kRouteCluster = 3, kRouteDevice = 4 };
 
 // Writes the warp's n sorted items, striped, at element c0 of the row.
 template <int ITEMS, bool kWithPos>
@@ -197,9 +284,9 @@ __global__ void __launch_bounds__(32 * kBlockRouteMaxWarps)
                                lane);
 }
 
-// -- the long route (L > 8,192) -----------------------------------------------
+// -- the device-memory route (L > 55,296) ------------------------------------
 
-// Shared memory of a long-route block.
+// Shared memory of a device-memory-route block.
 struct LongSmem {
   unsigned counts[kLongWarps * kBuckets];  // per warp, then its tile offsets
   unsigned hist[kPasses][kBuckets];        // per pass: digit counts, then running offsets
@@ -373,20 +460,436 @@ __global__ void __launch_bounds__(32 * kLongWarps)
   }
 }
 
+// -- the shared-memory route and the cluster route (8,192 < L <= 55,296) -----
+
+// Shared memory of a block of W warps holding n elements of a row: the
+// warps' counters (warp-major, 256 each; the load's sweep uses them as W / 4
+// groups of four passes' counters), each pass's starting offsets per digit
+// (on the cluster route the block's count of the pass's digits, which the
+// other blocks read), kMisc words (group sums, AND / OR), then two key
+// buffers and, with positions, two 16-bit position buffers.
+constexpr int kMisc = 48;
+__host__ __device__ constexpr size_t row_header_bytes(int warps) {
+  return ((size_t)warps * kBuckets + kPasses * kBuckets + kMisc) * 4;
+}
+__host__ __device__ constexpr size_t row_smem_bytes(int n, int warps, bool with_pos) {
+  return row_header_bytes(warps) + 2 * align16((size_t)n * 4) +
+         (with_pos ? 2 * align16((size_t)n * 2) : 0);
+}
+static_assert(row_header_bytes(kSmemWarps) % 16 == 0 && row_header_bytes(kClusterWarps) % 16 == 0,
+              "the key buffers start 16-byte aligned");
+static_assert(kSmemWarps % 4 == 0 && kSmemWarps >= 8 && kSmemWarps <= 32 &&
+                  kClusterWarps % 4 == 0 && kClusterWarps >= 8 && kClusterWarps <= 32,
+              "a thread per digit; the sweep's counter groups take four warps' counters");
+
+// the most elements a block of `warps` warps holds in kSmemLimit bytes
+constexpr int row_capacity(int warps, bool with_pos) {
+  int n = (int)((kSmemLimit - row_header_bytes(warps)) / (with_pos ? 12 : 8));
+  while (row_smem_bytes(n + 1, warps, with_pos) <= (size_t)kSmemLimit) ++n;
+  while (row_smem_bytes(n, warps, with_pos) > (size_t)kSmemLimit) --n;
+  return n;
+}
+
+static_assert(kClusterTile <= row_capacity(kClusterWarps, true),
+              "a cluster block holds one tile of keys and positions");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the lanes of the warp whose v (< 512: a digit, or 0x100 for no item)
+// equals this lane's, by nine ballots (__match_any_sync ran slower on the
+// card: 2.48 against 2.08 ms at 2,048 x 23,741)
+__device__ __forceinline__ unsigned match_peers(unsigned v) {
+  unsigned peers = kFull;
+#pragma unroll
+  for (int b = 0; b < 9; ++b) {
+    const bool bit = (v >> b) & 1u;
+    const unsigned set = __ballot_sync(kFull, bit);
+    peers &= bit ? set : ~set;
+  }
+  return peers;
+}
+
+// The 32-bit shared::cluster address of p (in this block's shared memory)
+// in block `rank` of the cluster, and stores there: 32-bit addresses keep
+// the cluster route's scatter in fewer registers than generic pointers.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_u32(unsigned addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_u16(unsigned addr, uint16_t v) {
+  asm volatile("st.shared::cluster.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+
+// Exclusive scan of v over the digits held by threads 0..255 (thread d
+// holds digit d): the sum of v over the digits before d.  gs: 8 words.
+// Every thread of the block calls it; it ends with a __syncthreads.
+__device__ __forceinline__ unsigned digit_exclusive_scan(unsigned v, unsigned* gs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned incl = 0;
+  if (threadIdx.x < kBuckets) {
+    incl = warp_inclusive_scan(v, lane);
+    if (lane == 31) gs[warp] = incl;
+  }
+  __syncthreads();
+  unsigned before = 0;
+  if (threadIdx.x < kBuckets)
+    for (int w = 0; w < warp; ++w) before += gs[w];
+  __syncthreads();  // gs is free again
+  return before + incl - v;
+}
+
+// digit_exclusive_scan of the four passes' counts at once, in place; gs:
+// 4 x 8 words.
+__device__ __forceinline__ void digit_exclusive_scan4(unsigned (&v)[kPasses], unsigned* gs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned incl[kPasses];
+  if (threadIdx.x < kBuckets) {
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      incl[p] = warp_inclusive_scan(v[p], lane);
+      if (lane == 31) gs[p * 8 + warp] = incl[p];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kBuckets) {
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      unsigned before = 0;
+      for (int w = 0; w < warp; ++w) before += gs[p * 8 + w];
+      v[p] = before + incl[p] - v[p];
+    }
+  }
+  __syncthreads();  // gs is free again
+}
+
+// rank_digits of radix_sort.cuh with each item's key read from the warp's
+// chunk in shared memory, keys[i * 32 + lane], where it is needed rather
+// than held in registers (the cluster route)
+template <int ITEMS>
+__device__ __forceinline__ void rank_digits_shared(const uint32_t* keys, uint32_t (&pr)[ITEMS],
+                                                   unsigned* counts, int shift, int n, int lane) {
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int left = n - i * 32;
+    if (left <= 0) break;  // the same for every lane
+    const unsigned valid = left >= 32 ? kFull : (1u << left) - 1u;
+    const unsigned d = lane < left ? (keys[i * 32 + lane] >> shift) & 0xffu : 0xffu;
+    const unsigned peers = peers_of(d) & valid;
+    const int first = __ffs(peers) - 1;  // -1 for a lane past the chunk
+    unsigned before = 0;
+    if (lane == first) before = atomicAdd(&counts[d], (unsigned)__popc(peers));
+    before = __shfl_sync(kFull, before, first & 31);
+    pr[i] = (pr[i] & 0xffff0000u) | (before + __popc(peers & below));
+    __syncwarp();  // the next item's counter updates see this one's
+  }
+}
+
+// Shared-memory route, 8,192 < L <= K9_SMEM_MAX (kCluster false): block b
+// sorts row b in its own shared memory, m = L.  Cluster route (kCluster
+// true): the c blocks of a cluster sort one row, block r holding elements
+// [r * m, r * m + m) of it (fewer in the last; m <= one tile, which the
+// launcher's cluster_size ensures), and each pass places every item in the
+// buffer of the block that holds its place, through distributed shared
+// memory.  W warps, ITEMS items a lane; a tile is W * ITEMS * 32 of the
+// block's elements.
+template <int W, int ITEMS, bool kWithPos, bool kCluster>
+__global__ void __launch_bounds__(32 * W)
+    sort_rows_smem_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          int32_t* __restrict__ pos_out, int L, int m) {
+  constexpr int kTileN = W * ITEMS * 32;
+  constexpr int kGroups = W / 4;  // the sweep's counter groups
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned* const counts = reinterpret_cast<unsigned*>(smem_raw);  // [W][256]
+  unsigned* const offs = counts + W * kBuckets;                     // [4][256]
+  unsigned* const gs = offs + kPasses * kBuckets;                   // [4][8]
+  unsigned* const bits = gs + 32;                                   // AND, OR
+  uint32_t* const keys0 = reinterpret_cast<uint32_t*>(smem_raw + row_header_bytes(W));
+  uint32_t* const keys1 = keys0 + align16((size_t)m * 4) / 4;
+  uint16_t* const pos0 = reinterpret_cast<uint16_t*>(keys1 + align16((size_t)m * 4) / 4);
+  uint16_t* const pos1 = pos0 + align16((size_t)m * 2) / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = threadIdx.x;  // the digit of threads 0..255
+
+  int rank = 0, c = 1;
+  if (kCluster) {
+    rank = (int)cg::this_cluster().block_rank();
+    c = (int)cg::this_cluster().num_blocks();
+  }
+  const int64_t row = blockIdx.x / c;
+  const int e0 = rank * m;               // the block's first element of the row
+  const int n = max(0, min(m, L - e0));  // the elements it holds
+  const float* src = x + row * L + e0;
+  // a block whose elements make one tile (every cluster block) takes each
+  // pass's counts from the tile's ranking, and the sweep counts nothing
+  const bool one_tile = kCluster || m <= kTileN;
+
+  // the load: the block's elements as raw bits, by cp.async (16 bytes
+  // where the row base is aligned); the counters zeroed meanwhile
+  if (((uintptr_t)src & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int t = threadIdx.x; t < n4; t += blockDim.x) cp_async16(keys0 + 4 * t, src + 4 * t);
+    for (int t = 4 * n4 + threadIdx.x; t < n; t += blockDim.x) cp_async4(keys0 + t, src + t);
+  } else {
+    for (int t = threadIdx.x; t < n; t += blockDim.x) cp_async4(keys0 + t, src + t);
+  }
+  for (int t = threadIdx.x; t < W * kBuckets; t += blockDim.x) counts[t] = 0;
+  if (threadIdx.x == 0) {
+    bits[0] = kFull;
+    bits[1] = 0;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the sweep: raw bits to keys, their AND / OR and (a block a row) all
+  // four passes' digit counts, which no pass changes
+  {
+    unsigned all = kFull, any = 0;
+    unsigned* grp = counts + (warp % kGroups) * (kPasses * kBuckets);
+    for (int j0 = warp * 32; j0 < n; j0 += blockDim.x) {  // warp-uniform
+      const int j = j0 + lane;
+      const bool valid = j < n;
+      uint32_t k = 0;
+      if (valid) {
+        k = ordered_ukey(__uint_as_float(keys0[j]));
+        keys0[j] = k;
+        all &= k;
+        any |= k;
+      }
+      if (!one_tile) {
+#pragma unroll
+        for (int p = 0; p < kPasses; ++p) {
+          const unsigned dig = valid ? (k >> (8 * p)) & 0xffu : 0x100u;
+          const unsigned peers = match_peers(dig);
+          if (valid && lane == __ffs(peers) - 1)
+            atomicAdd(&grp[p * kBuckets + dig], (unsigned)__popc(peers));
+        }
+      }
+    }
+    all = __reduce_and_sync(kFull, all);
+    any = __reduce_or_sync(kFull, any);
+    if (lane == 0) {
+      atomicAnd(&bits[0], all);
+      atomicOr(&bits[1], any);
+    }
+  }
+  unsigned varying;
+  if (kCluster) {
+    cg::this_cluster().sync();  // every block's bits are in
+    unsigned all = kFull, any = 0;
+    for (int b = 0; b < c; ++b) {
+      const unsigned* rb = cg::this_cluster().map_shared_rank(bits, b);
+      all &= rb[0];
+      any |= rb[1];
+    }
+    varying = all ^ any;
+  } else {
+    __syncthreads();  // the counts and the bits are in
+    varying = bits[0] ^ bits[1];
+    if (!one_tile) {  // each pass's starting place of digit d in the row
+      unsigned cnt[kPasses] = {0, 0, 0, 0};
+      if (threadIdx.x < kBuckets)
+        for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+          for (int p = 0; p < kPasses; ++p) cnt[p] += counts[(g * kPasses + p) * kBuckets + d];
+      digit_exclusive_scan4(cnt, gs);
+      if (threadIdx.x < kBuckets)
+#pragma unroll
+        for (int p = 0; p < kPasses; ++p) offs[p * kBuckets + d] = cnt[p];
+    }
+  }
+  int n_active = 0;
+  for (int p = 0; p < kPasses; ++p) n_active += ((varying >> (8 * p)) & 0xffu) != 0;
+  if (kCluster && n_active == 0) cg::this_cluster().sync();  // no block reads the bits after this
+
+  uint32_t* sk = keys0;
+  uint32_t* dk = keys1;
+  uint16_t* sp = pos0;
+  uint16_t* dp = pos1;
+  bool first = true;  // the positions are still the elements' own
+  for (int p = 0; p < kPasses; ++p) {
+    const int shift = 8 * p;
+    if (((varying >> shift) & 0xffu) == 0) continue;  // one digit holds the row: order kept
+    // thread d: the place in the row of the next item of digit d (set in
+    // the tile where the block's elements make one)
+    unsigned run = 0;
+    if (!one_tile && threadIdx.x < kBuckets) run = offs[p * kBuckets + d];
+    // the tile walk: tiles in order, each ranked by (digit, warp) and
+    // placed at the running places, which advance by the tile's counts
+    unsigned* const mine = counts + warp * kBuckets;
+    const int n_tiles = one_tile ? 1 : (n + kTileN - 1) / kTileN;
+    for (int t0 = 0; t0 < n_tiles * kTileN; t0 += kTileN) {
+      const int c0 = t0 + warp * ITEMS * 32;
+      const int wn = min(ITEMS * 32, n - c0);  // <= 0 for a warp past the block's elements
+      // the cluster route reads each key from sk where it needs it (the
+      // rank, the scatter) and holds only pr in registers
+      uint32_t key[kCluster ? 1 : ITEMS], pr[ITEMS];
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const int j = i * 32 + lane;
+        if (!kCluster) key[kCluster ? 0 : i] = 0xffffffffu;
+        pr[i] = 0;
+        if (j < wn) {
+          if (!kCluster) key[kCluster ? 0 : i] = sk[c0 + j];
+          if (kWithPos) pr[i] = (uint32_t)(first ? e0 + c0 + j : (int)sp[c0 + j]) << 16;
+        }
+      }
+      __syncwarp();  // the warp's reads of mine in the last tile's scatter are done
+      zero_counts(mine, lane);
+      __syncwarp();
+      if constexpr (kCluster) rank_digits_shared<ITEMS>(sk + c0, pr, mine, shift, wn, lane);
+      else rank_digits<ITEMS>(key, pr, mine, shift, wn, lane);
+      __syncthreads();  // every warp's counts are in
+      if (one_tile) {  // the pass's counts are the tile's
+        unsigned total = 0, before = 0;
+        if (threadIdx.x < kBuckets)
+          for (int w = 0; w < W; ++w) total += counts[w * kBuckets + d];
+        if (kCluster) {
+          if (threadIdx.x < kBuckets) offs[d] = total;
+          cg::this_cluster().sync();  // every block's counts are in
+          total = 0;
+          if (threadIdx.x < kBuckets) {
+            for (int b = 0; b < c; ++b) {
+              const unsigned hb = cg::this_cluster().map_shared_rank(offs, b)[d];
+              total += hb;
+              if (b < rank) before += hb;
+            }
+          }
+        }
+        run = digit_exclusive_scan(total, gs) + before;
+      }
+      if (threadIdx.x < kBuckets) {
+#pragma unroll 8
+        for (int w = 0; w < W; ++w) {
+          const unsigned cw = counts[w * kBuckets + d];
+          counts[w * kBuckets + d] = run;
+          run += cw;
+        }
+      }
+      __syncthreads();  // each warp's places are in
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        if (i * 32 >= wn) break;
+        if (i * 32 + lane < wn) {
+          const uint32_t k = kCluster ? sk[c0 + i * 32 + lane] : key[kCluster ? 0 : i];
+          const unsigned dig = (k >> shift) & 0xffu;
+          const int r = (int)(mine[dig] + (pr[i] & 0xffffu));  // the item's place in the row
+          if (kCluster) {
+            const int b = (r >= m) + (r >= 2 * m) + (r >= 3 * m);
+            const int lr = r - b * m;
+            st_cluster_u32(cluster_addr(dk + lr, b), k);
+            if (kWithPos) st_cluster_u16(cluster_addr(dp + lr, b), (uint16_t)(pr[i] >> 16));
+          } else {
+            dk[r] = k;
+            if (kWithPos) dp[r] = (uint16_t)(pr[i] >> 16);
+          }
+        }
+      }
+    }
+    if (kCluster) cg::this_cluster().sync();  // every block's buffer is filled
+    else __syncthreads();
+    uint32_t* const tk = sk;
+    sk = dk;
+    dk = tk;
+    uint16_t* const tp = sp;
+    sp = dp;
+    dp = tp;
+    first = false;
+  }
+
+  // the store: floats, and positions widened to int32, coalesced
+  float* const o = out + row * L + e0;
+  int32_t* const po = kWithPos ? pos_out + row * L + e0 : nullptr;
+  int t_scalar = 0;
+  if (((uintptr_t)o & 15) == 0 && (!kWithPos || ((uintptr_t)po & 15) == 0)) {
+    const int n4 = n >> 2;
+    for (int t = threadIdx.x; t < n4; t += blockDim.x) {
+      const uint4 k = reinterpret_cast<const uint4*>(sk)[t];
+      reinterpret_cast<float4*>(o)[t] =
+          make_float4(ukey_to_float(k.x), ukey_to_float(k.y), ukey_to_float(k.z), ukey_to_float(k.w));
+      if (kWithPos) {
+        const int j = 4 * t;
+        reinterpret_cast<int4*>(po)[t] =
+            first ? make_int4(e0 + j, e0 + j + 1, e0 + j + 2, e0 + j + 3)
+                  : make_int4(sp[j], sp[j + 1], sp[j + 2], sp[j + 3]);
+      }
+    }
+    t_scalar = 4 * n4;
+  }
+  for (int t = t_scalar + threadIdx.x; t < n; t += blockDim.x) {
+    o[t] = ukey_to_float(sk[t]);
+    if (kWithPos) po[t] = first ? e0 + t : (int32_t)sp[t];
+  }
+}
+
 // -- the unsort ---------------------------------------------------------------
 
-// a block a row
+// a block a row, the row of floats in shared memory; kVec: 16-byte reads
+// and writes (L a multiple of 4, bases aligned), else four elements a
+// thread in flight
+template <bool kVec>
 __global__ void unsort_rows_kernel(const float* __restrict__ vals,
                                    const int32_t* __restrict__ pos,
                                    float* __restrict__ out, int L) {
-  extern __shared__ float buf[];
+  extern __shared__ __align__(16) float buf[];
   const int64_t base = (int64_t)blockIdx.x * L;
-  for (int t = threadIdx.x; t < L; t += blockDim.x) {
-    const int32_t p = pos[base + t];
-    if ((uint32_t)p < (uint32_t)L) buf[p] = vals[base + t];
+  if (kVec) {
+    const int n4 = L >> 2;
+    const int4* p4 = reinterpret_cast<const int4*>(pos + base);
+    const float4* v4 = reinterpret_cast<const float4*>(vals + base);
+    for (int t = threadIdx.x; t < n4; t += blockDim.x) {
+      const int4 p = p4[t];
+      const float4 v = v4[t];
+      if ((uint32_t)p.x < (uint32_t)L) buf[p.x] = v.x;
+      if ((uint32_t)p.y < (uint32_t)L) buf[p.y] = v.y;
+      if ((uint32_t)p.z < (uint32_t)L) buf[p.z] = v.z;
+      if ((uint32_t)p.w < (uint32_t)L) buf[p.w] = v.w;
+    }
+    __syncthreads();
+    float4* o4 = reinterpret_cast<float4*>(out + base);
+    const float4* b4 = reinterpret_cast<const float4*>(buf);
+    for (int t = threadIdx.x; t < n4; t += blockDim.x) o4[t] = b4[t];
+    return;
+  }
+  const int stride = blockDim.x;
+  for (int t0 = threadIdx.x; t0 < L; t0 += 4 * stride) {
+    int32_t p[4];
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = t0 + u * stride;
+      p[u] = -1;
+      if (t < L) {
+        p[u] = pos[base + t];
+        v[u] = vals[base + t];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if ((uint32_t)p[u] < (uint32_t)L) buf[p[u]] = v[u];
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < L; t += blockDim.x) out[base + t] = buf[t];
+  for (int t = threadIdx.x; t < L; t += stride) out[base + t] = buf[t];
 }
 
 // a warp a row, kUnsortWarps rows a block, each warp in its own slice of L
@@ -508,17 +1011,80 @@ cudaError_t launch_long_route(const float* x, float* out, int32_t* pos, uint32_t
   return cudaGetLastError();
 }
 
+// The cluster route's blocks a row at L: the least number, at least
+// kClusterMin, whose blocks each hold one tile of the row.
+int cluster_size(int L) {
+  const int c = (L + kClusterTile - 1) / kClusterTile;
+  return c > kClusterMin ? c : kClusterMin;
+}
+
+// The sort's route at L (the trial switch may force the device-memory
+// route).  The cluster route takes the rows
+// that kClusterMax blocks of one tile each hold (55,296): past them its
+// blocks would walk several tiles, each pass counting its digits, and the
+// device-memory route ran faster on the card.
+SortRoute sort_route(int L, bool with_pos) {
+  if (L <= kWarpRouteMaxLen) return kRouteWarp;
+  if (L <= kMaxLen) return kRouteBlock;
+  if (SDT_K9_LONG_ROUTE == 1) return kRouteDevice;
+  if (L <= row_capacity(kSmemWarps, with_pos)) return kRouteSmem;
+  if (cluster_size(L) <= kClusterMax) return kRouteCluster;
+  return kRouteDevice;
+}
+
+// The shared-memory route (c = 1, a block a row) and the cluster route
+// (c blocks a row, one cluster a row).
+template <bool kWithPos, int W, int ITEMS, bool kCluster>
+cudaError_t launch_rows_in_smem(const float* x, float* out, int32_t* pos, int64_t B, int L, int c,
+                                cudaStream_t stream) {
+  if (B * c > 0x7fffffff) return cudaErrorInvalidValue;
+  const int m = (L + c - 1) / c;
+  const size_t smem = row_smem_bytes(m, W, kWithPos);
+  auto kernel = sort_rows_smem_kernel<W, ITEMS, kWithPos, kCluster>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (!kCluster) {
+    kernel<<<(unsigned)B, 32 * W, smem, stream>>>(x, out, pos, L, m);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * c), 1, 1);
+  cfg.blockDim = dim3(32 * W, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, out, pos, L, m);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // Items a lane, chosen by L.  The warp route takes the least multiple of 4
 // that holds the row (registers are sized by it).  The block route takes 4
 // items a lane up to 2,048, 12 up to 4,096 and 16 up to 8,192, 8 to 16
 // warps: at config 8's 3,650, 10 warps of 12 items ran faster on the card
-// than 15 of 8 or 8 of 16.  Above 8,192 the long route.
+// than 15 of 8 or 8 of 16.  Above 8,192 the route of sort_route.
 template <bool kWithPos>
 int launch_sort(const float* x, float* out, int32_t* pos, uint32_t* work, int64_t B, int L,
                 void* stream) {
   if (B <= 0 || L <= 0 || B > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (L > kMaxLen) return (int)launch_long_route<kWithPos>(x, out, pos, work, B, L, s);
+  switch (sort_route(L, kWithPos)) {
+    case kRouteSmem:
+      return (int)launch_rows_in_smem<kWithPos, kSmemWarps, kSmemItems, false>(x, out, pos, B, L, 1, s);
+    case kRouteCluster:
+      return (int)launch_rows_in_smem<kWithPos, kClusterWarps, kClusterItems, true>(
+          x, out, pos, B, L, cluster_size(L), s);
+    case kRouteDevice:
+      return (int)launch_long_route<kWithPos>(x, out, pos, work, B, L, s);
+    default:
+      break;
+  }
   cudaError_t err;
   switch (L <= kWarpRouteMaxLen ? (L + 127) / 128 : 0) {
     case 1: err = launch_warp_route<kWithPos, 4>(x, out, pos, B, L, s); break;
@@ -537,9 +1103,10 @@ int launch_sort(const float* x, float* out, int32_t* pos, uint32_t* work, int64_
   return (int)err;
 }
 
-// The unsort's route at L (the trial switch may force one).
+// The unsort's route at L (the trial switches may force one).
 UnsortRoute unsort_route(int L) {
-  if (L > kMaxLen || SDT_K9_UNSORT_ROUTE == 3) return kUnsortScatter;
+  if (L > kUnsortBlockMax || SDT_K9_UNSORT_ROUTE == 3) return kUnsortScatter;
+  if (L > kMaxLen && SDT_K9_LONG_ROUTE == 1) return kUnsortScatter;
   if (SDT_K9_UNSORT_ROUTE == 1) return kUnsortBlock;
   const int warp_max = SDT_K9_UNSORT_ROUTE == 2 ? 1024 : kUnsortWarpMax;
   return L <= warp_max ? kUnsortWarp : kUnsortBlock;
@@ -551,8 +1118,9 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 extern "C" {
 
-// work: null for L <= 8,192; above, B * L uint32 (sort_rows) or B * L
-// uint32 then B * L int32 (with positions), on the launch's stream.
+// work: null unless L takes the device-memory route (sdt_sort_route);
+// there, B * L uint32 (sort_rows) or B * L uint32 then B * L int32 (with
+// positions), on the launch's stream.
 int sdt_sort_rows(const float* x, float* out, void* work, int64_t B, int L, void* stream) {
   return launch_sort<false>(x, out, nullptr, (uint32_t*)work, B, L, stream);
 }
@@ -585,9 +1153,16 @@ int sdt_unsort_rows(const float* vals, const int32_t* pos, float* out, int64_t B
     }
     case kUnsortBlock: {
       const size_t smem = (size_t)L * sizeof(float);
-      err = allow_smem(unsort_rows_kernel, smem);
-      if (err == cudaSuccess)
-        unsort_rows_kernel<<<(unsigned)B, block_threads(L), smem, s>>>(vals, pos, out, L);
+      const int threads = block_threads(vec ? L / 4 : L);
+      if (vec) {
+        err = allow_smem(unsort_rows_kernel<true>, smem);
+        if (err == cudaSuccess)
+          unsort_rows_kernel<true><<<(unsigned)B, threads, smem, s>>>(vals, pos, out, L);
+      } else {
+        err = allow_smem(unsort_rows_kernel<false>, smem);
+        if (err == cudaSuccess)
+          unsort_rows_kernel<false><<<(unsigned)B, threads, smem, s>>>(vals, pos, out, L);
+      }
       break;
     }
     case kUnsortScatter: {
@@ -609,6 +1184,16 @@ int sdt_unsort_rows(const float* vals, const int32_t* pos, float* out, int64_t B
 // The unsort's route at L in this build: 0 a warp a row, 1 a block a row,
 // 2 the straight scatter.
 int sdt_unsort_route(int L) { return (int)unsort_route(L); }
+
+// The sort's route at L in this build: 0 a warp a row, 1 a block a row, 2
+// shared memory, 3 a cluster, 4 device memory; cluster: its blocks a row
+// (0 on the other routes).
+int sdt_sort_route(int L, int with_pos, int* cluster) {
+  if (L <= 0) return -1;
+  const SortRoute r = sort_route(L, with_pos != 0);
+  if (cluster) *cluster = r == kRouteCluster ? cluster_size(L) : 0;
+  return (int)r;
+}
 
 const char* sdt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

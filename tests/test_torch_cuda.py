@@ -17,6 +17,7 @@ import skdownscale_tpu_torch as P
 from skdownscale_tpu_torch.kernels import rank_map as K
 from skdownscale_tpu_torch.kernels.interp import LONG_ROW_MIN as _LONG_MIN
 from skdownscale_tpu_torch.kernels import slide_sort as S
+from skdownscale_tpu_torch.kernels import sort_rows as _SR
 from skdownscale_tpu_torch.models import bcsd as B
 from skdownscale_tpu_torch.models.slide import build_slide_plan
 from skdownscale_tpu_torch.utils.timeindex import PaddedGroups, TimeIndex, padded_doy_groups
@@ -791,12 +792,21 @@ def _k9_rows(rng, B, L):
      # a warp a row (L <= 1,024, four rows a block) and a block a row around
      # the edge between them, with row counts that leave a block part full
      (6144, 304), (3001, 620), (64, 1024), (64, 1025), (8, 33), (7, 8191),
-     # the long route: one past K9_MAX_LEN, 30 years of days, tiles part full
-     (9, 8193), (5, 10957), (3, 55152)],
+     # above K9_MAX_LEN: one past it and 30 years of days (shared memory),
+     # each form's K9_SMEM_MAX and one past it, 1950-2014 and 1950-2100
+     # days and the longest cluster row (2 to 4 blocks), one past it,
+     # 65,536 and 65,537 (device memory)
+     (9, 8193), (5, 10957), (4, _SR.K9_SMEM_MAX[True]), (4, _SR.K9_SMEM_MAX[True] + 1),
+     (4, _SR.K9_SMEM_MAX[False]), (4, _SR.K9_SMEM_MAX[False] + 1), (3, 23741), (3, 55152),
+     (2, _SR.CLUSTER_MAX * _SR.CLUSTER_TILE), (2, _SR.CLUSTER_MAX * _SR.CLUSTER_TILE + 1),
+     (2, 65536), (2, 65537)],
 )
 def test_k9_forms_bitwise_vs_plain(cuda_device, rng, B, L):
     from skdownscale_tpu_torch.kernels import sort_rows as S
 
+    for wp in (False, True):  # the launcher's route is the rule's
+        assert S.sort_route(L, wp, S._lib()) == S.sort_route(L, wp)
+    assert S.unsort_route(L, S._lib()) == S.unsort_route(L)
     x = torch.from_numpy(_k9_rows(rng, B, L)).to(cuda_device)
     v = torch.from_numpy(rng.normal(0, 1, (B, L)).astype(np.float32)).to(cuda_device)
     n0 = dict(S.LAUNCHES)

@@ -3,9 +3,10 @@ versions of its three forms against the Pallas kernel of
 ``skdownscale_tpu/ops/pallas/sort_kernel.py`` in interpret mode, at the
 shapes and special rows of ``tests/test_sort_kernel.py``; the stable tie
 order; the TPU kernel's pad-position fault (ROADMAP F8); numpy models of
-the CUDA kernel's routes (the in-shared-memory radix sort, the long route
-above K9_MAX_LEN, the unsort's index maps); and the BCSD row sort sites,
-which route 256 < L to K9.
+the CUDA kernel's routes (the in-shared-memory radix sort; above
+K9_MAX_LEN the shared-memory, cluster and device-memory routes and the
+route rule; the unsort's index maps); and the BCSD row sort sites, which
+route 256 < L to K9.
 
 Values and unsorts are compared bitwise.  Positions are compared exactly
 where a row has no tied keys; the Pallas kernel leaves the order of ties
@@ -314,6 +315,148 @@ def test_long_radix_model_matches_the_plain_stable_sort_bitwise(rng, L, kind):
     npt.assert_array_equal(_bits(vals), _bits(K.sort_rows_plain(torch.from_numpy(x)).numpy()))
 
 
+def _tile_walk(src_k, src_p, dst_k, dst_p, run, shift, warps, items, e0, written):
+    """One block's walk of one pass over its elements ``src_k`` (and 16-bit
+    positions ``src_p``, None on the first pass: the elements' own, e0 +
+    index): tiles of ``warps * items * 32`` in order; in a tile each warp
+    ranks its contiguous chunk of ``items * 32`` in (i, l) order, which is
+    element order, by digit; thread d turns the warps' counts of digit d
+    into their places from the running place ``run[d]`` in (digit, warp)
+    order, and ``run`` advances by the tile's counts.  Each item goes to
+    its place in the row's buffers ``dst_k`` / ``dst_p``."""
+    chunk = items * 32
+    tile = warps * chunk
+    for t0 in range(0, src_k.size, tile):
+        tk = src_k[t0:t0 + tile]
+        tn = tk.size
+        tp = (e0 + t0 + np.arange(tn)).astype(np.uint16) if src_p is None else src_p[t0:t0 + tile]
+        d = ((tk >> shift) & 0xFF).astype(np.int64)
+        w = np.arange(tn) // chunk
+        grp = w * 256 + d
+        order = np.argsort(grp, kind="stable")
+        local = np.empty(tn, np.int64)
+        local[order] = np.arange(tn) - np.searchsorted(grp[order], grp[order], side="left")
+        counts = np.bincount(grp, minlength=warps * 256).reshape(warps, 256)
+        place = run[None, :] + np.cumsum(counts, 0) - counts  # (warp, digit)
+        r = place[w, d] + local
+        dst_k[r], dst_p[r] = tk, tp
+        np.add.at(written, r, 1)
+        run += counts.sum(0)
+
+
+def _in_smem_radix_model(x, with_positions):
+    """(sorted values, int32 positions) of float32 rows ``x`` as the
+    shared-memory route (one block a row) or the cluster route (c blocks a
+    row, ``K.cluster_size``) computes them, by ``K.sort_route``.  One block:
+    the load's sweep counts all four digits, whose exclusive scans start
+    each pass's running places (a row of one tile counts in its tile: the
+    same counts).  A cluster: block r holds elements [r * m, r * m + m) of
+    the current order, m = ceil(L / c) <= one tile; each pass every block
+    counts its tile's digits, and its running place of digit d starts at
+    the items of smaller digits in the row plus those of digit d in the
+    blocks before it ((digit, block) order).  Either way a pass whose byte
+    is the same in every key is skipped, each pass writes every place of
+    the row once (in the block that holds it), and keys and 16-bit
+    positions go from one buffer to the other."""
+    B, L = x.shape
+    route = K.sort_route(L, with_positions)
+    assert route in ("smem", "cluster")
+    c = 1 if route == "smem" else K.cluster_size(L)
+    assert 2 <= c <= K.CLUSTER_MAX or route == "smem"
+    warps, items = ((K.SMEM_WARPS, K.SMEM_ITEMS) if route == "smem"
+                    else (K.CLUSTER_WARPS, K.CLUSTER_ITEMS))
+    m = -(-L // c)
+    assert K.row_smem_bytes(m, warps, with_positions) <= K.SMEM_LIMIT
+    assert route == "smem" or m <= K.CLUSTER_TILE  # a cluster block walks one tile
+    bounds = [(r * m, min(L, r * m + m)) for r in range(c)]
+    assert all(lo < hi for lo, hi in bounds)
+    ukeys = _keys(x).view(np.uint32) ^ np.uint32(0x80000000)
+    out_k = np.empty_like(ukeys)
+    out_p = np.empty((B, L), np.int32)
+    shifts = (0, 8, 16, 24)
+    for b in range(B):
+        key, pos = ukeys[b].copy(), None
+        varying = int(np.bitwise_and.reduce(key) ^ np.bitwise_or.reduce(key))
+        hist = [np.bincount((key >> s) & 0xFF, minlength=256) for s in shifts]  # the one block's sweep
+        for p, s in enumerate(shifts):
+            if not (varying >> s) & 0xFF:
+                continue
+            dst_k, dst_p = np.empty(L, np.uint32), np.empty(L, np.uint16)
+            written = np.zeros(L, np.int64)
+            if c == 1:
+                starts = [np.cumsum(hist[p]) - hist[p]]
+            else:
+                counts = np.stack([np.bincount((key[lo:hi] >> s) & 0xFF, minlength=256) for lo, hi in bounds])
+                total = counts.sum(0)
+                starts = (np.cumsum(total) - total)[None, :] + np.cumsum(counts, 0) - counts
+            for r, (lo, hi) in enumerate(bounds):
+                run = starts[r].copy()
+                _tile_walk(key[lo:hi], None if pos is None else pos[lo:hi], dst_k, dst_p, run, s,
+                           warps, items, lo, written)
+            npt.assert_array_equal(written, 1)  # every place of the row once
+            key, pos = dst_k, dst_p
+        out_k[b] = key
+        out_p[b] = np.arange(L) if pos is None else pos
+    ordered = (out_k ^ np.uint32(0x80000000)).view(np.int32)
+    bits = np.where(ordered >= 0, ordered, np.invert(ordered ^ np.int32(-(2**31))))
+    return bits.view(np.float32), out_p
+
+
+_SMEM_EDGES = [8193, 10957, K.K9_SMEM_MAX[False], K.K9_SMEM_MAX[False] + 1, K.K9_SMEM_MAX[True],
+               K.K9_SMEM_MAX[True] + 1, 23741, 55152, K.CLUSTER_MAX * K.CLUSTER_TILE,
+               K.CLUSTER_MAX * K.CLUSTER_TILE + 1, 65536, 65537]
+
+
+@pytest.mark.parametrize("kind", ["specials", "nan_zero"])
+@pytest.mark.parametrize("with_positions", [False, True], ids=["sort", "positions"])
+@pytest.mark.parametrize("L", _SMEM_EDGES)
+def test_in_smem_radix_models_match_the_plain_stable_sort_bitwise(rng, L, with_positions, kind):
+    """The shared-memory route (a block a row) and the cluster route (2 to
+    4 blocks a row, distributed shared memory) with 16-bit positions, the
+    constant-digit skip and their tile walks, at each side of each form's
+    K9_SMEM_MAX, one past K9_MAX_LEN, 30 years of days, 1950-2014 and
+    1950-2100 daily and the longest cluster row, give the stable sort's
+    values and positions; one past it, 65,536 and 65,537 take the
+    device-memory route (its model)."""
+    x = _specials(rng, 2, L) if kind == "specials" else _nan_zero_rows(rng, 2, L)
+    x[-1] = np.float32(283.5) + rng.normal(0, 1, L).astype(np.float32)  # a constant top byte
+    route = K.sort_route(L, with_positions)
+    vals, pos = (_in_smem_radix_model(x, with_positions) if route != "device" else _long_radix_model(x))
+    want_v, want_p = K.sort_rows_with_positions_plain(torch.from_numpy(x))
+    npt.assert_array_equal(_bits(vals), _bits(want_v.numpy()))
+    if with_positions:
+        npt.assert_array_equal(pos, want_p.numpy())
+    npt.assert_array_equal(_bits(vals), _bits(K.sort_rows_plain(torch.from_numpy(x)).numpy()))
+
+
+@pytest.mark.parametrize("L,sort,positions,unsort", [
+    (1, "warp", "warp", "warp"), (1024, "warp", "warp", "warp"), (1025, "block", "block", "block"),
+    (8192, "block", "block", "block"), (8193, "smem", "smem", "block"), (10957, "smem", "smem", "block"),
+    (K.K9_SMEM_MAX[True], "smem", "smem", "block"), (K.K9_SMEM_MAX[True] + 1, "smem", "cluster", "block"),
+    (23741, "smem", "cluster", "block"), (K.K9_SMEM_MAX[False], "smem", "cluster", "block"),
+    (K.K9_SMEM_MAX[False] + 1, "cluster", "cluster", "block"), (55152, "cluster", "cluster", "block"),
+    (55296, "cluster", "cluster", "block"), (55297, "device", "device", "block"),
+    (K.UNSORT_BLOCK_MAX, "device", "device", "block"), (K.UNSORT_BLOCK_MAX + 1, "device", "device", "scatter"),
+    (65536, "device", "device", "scatter"), (65537, "device", "device", "scatter"),
+])
+def test_sort_route_and_unsort_route_at_each_edge(L, sort, positions, unsort):
+    """The launcher's routes in plain Python: each form's K9_SMEM_MAX is the
+    longest row whose block fits 232,448 bytes of shared memory (16,280
+    with positions, 24,424 without), the cluster takes 2 to 4 blocks of one
+    tile (13,824) each, to 55,296, and the unsort's block route every row of
+    floats a block holds (58,112)."""
+    assert (K.sort_route(L, False), K.sort_route(L, True), K.unsort_route(L)) == (sort, positions, unsort)
+    for wp in (False, True):
+        cap = K.K9_SMEM_MAX[wp]
+        assert K.row_smem_bytes(cap, K.SMEM_WARPS, wp) <= K.SMEM_LIMIT < K.row_smem_bytes(cap + 1, K.SMEM_WARPS, wp)
+        if K.sort_route(L, wp) == "cluster":
+            c = K.cluster_size(L)
+            assert 2 <= c <= K.CLUSTER_MAX and -(-L // c) <= K.CLUSTER_TILE
+            assert K.row_smem_bytes(K.CLUSTER_TILE, K.CLUSTER_WARPS, wp) <= K.SMEM_LIMIT
+    assert K.K9_SMEM_MAX == {False: 24424, True: 16280}
+    assert [K.cluster_size(n) for n in (16281, 23741, 27648, 27649, 55152)] == [2, 2, 2, 3, 4]
+
+
 # the unsort's warp route: kUnsortWarps rows (warps) a block
 UNSORT_WARPS = 8
 
@@ -324,11 +467,40 @@ def _unsort_writes(route, vals, pos):
     lane, lane + 32, ... of the row where L is a multiple of 4, else its
     elements; ``scatter``: thread t takes elements 4t..4t+3 of the flat
     array, its row from 4t): (out, how often each out element was written,
-    how often each element of a row's shared slice was written)."""
+    how often each element of a row's shared slice was written).  ``block``:
+    block b takes row b with T threads (a multiple of 32, at most 1,024:
+    L / 4 words where L is a multiple of 4, else L elements); thread t the
+    16-byte words t, t + T, ..., else elements t0 + u * T (u < 4) for t0 =
+    t, t + 4T, ...; then the row out, element by element or word by
+    word."""
     B, L = vals.shape
     out = np.full(B * L, np.nan, np.float32)
     written = np.zeros(B * L, np.int64)
     slice_writes = np.zeros(B * L, np.int64)
+    if route == "block":
+        vec = L % 4 == 0
+        work = L // 4 if vec else L
+        T = min(1024, max(32, -(-work // 32) * 32))
+        buf = np.full((B, L), np.nan, np.float32)
+        rows = np.arange(B)[:, None]
+        for t in range(T):
+            if vec:
+                cols = (np.arange(t, L // 4, T)[:, None] * 4 + np.arange(4)).ravel()
+            else:
+                cols = (np.arange(t, L, 4 * T)[:, None] + np.arange(4) * T).ravel()
+                cols = cols[cols < L]
+            p = pos[:, cols]
+            ok = (p >= 0) & (p < L)
+            rr = np.broadcast_to(rows, p.shape)
+            buf[rr[ok], p[ok]] = vals[:, cols][ok]
+            np.add.at(slice_writes, rr[ok] * L + p[ok], 1)
+        for t in range(T):  # after __syncthreads
+            cols = ((np.arange(t, L // 4, T)[:, None] * 4 + np.arange(4)).ravel() if vec
+                    else np.arange(t, L, T))
+            flat = (rows * L + cols).ravel()
+            out[flat] = buf[:, cols].ravel()
+            np.add.at(written, flat, 1)
+        return out.reshape(B, L), written, slice_writes
     if route == "warp":
         blocks = -(-B // UNSORT_WARPS)
         rows = np.arange(blocks * UNSORT_WARPS)
@@ -365,14 +537,16 @@ def _unsort_writes(route, vals, pos):
 
 @pytest.mark.parametrize("route,B,L", [
     *(("warp", B, L) for B, L in [(6143, 304), (17, 620), (9, 37), (3, 1024)]),
-    *(("scatter", B, L) for B, L in [(6143, 304), (17, 620), (9, 37), (5, 10957)]),
+    *(("scatter", B, L) for B, L in [(6143, 304), (17, 620), (9, 37), (5, 10957), (2, 65536)]),
+    *(("block", B, L) for B, L in [(3, 8193), (5, 10957), (2, 23741), (2, 55152), (2, 58112)]),
 ])
 def test_unsort_routes_write_every_element_once_inside_its_row(rng, route, B, L):
-    """The unsort's short-row warp route and the straight scatter, modelled
-    loop by loop, write every element of every row once and inside its row,
-    at row counts that leave a block of UNSORT_WARPS rows part full; the
-    result is the plain unsort's, bitwise.  A position outside [0, L) is
-    skipped."""
+    """The unsort's short-row warp route, the block route above 8,192 (a row
+    of floats in a block's shared memory, to 58,112) and the straight
+    scatter, modelled loop by loop, write every element of every row once
+    and inside its row, at row counts that leave a block of UNSORT_WARPS
+    rows part full; the result is the plain unsort's, bitwise.  A position
+    outside [0, L) is skipped."""
     x = rng.normal(0, 5, (B, L)).astype(np.float32)
     vals = rng.normal(0, 1, (B, L)).astype(np.float32)
     _, pos = K.sort_rows_with_positions_plain(torch.from_numpy(x))

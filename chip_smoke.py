@@ -18,12 +18,17 @@ with a non-zero exit at the first failure, it:
    with one segment per row, at config 5's K2 shape (its streaming
    predict's chunk: valid cells x 8 groups x Lq 240), at each route edge of
    ``csrc/rank_map.cu`` (L = 64 / 65, 256 / 257, 1,024 / 1,025, 16,384 /
-   16,385) and
-   at L = 55,152 (one daily series of 1950-2100 a row, K2's search route),
-   on seeded inputs with NaN, -NaN, +-0, +-inf and heavy ties, times both
-   with CUDA events (not at the edges) beside ``torch.sort`` of the same
-   rows, and prints each route's launch shape (threads a block, keys a
-   lane, shared bytes, resident blocks an SM, registers and spills);
+   16,385), at each chunk-count edge of K2's staged route (32,768 /
+   32,769, 49,152 / 49,153), at 23,741 (1950-2014 daily) and on one row
+   of 2^20, and at L = 55,152 (one daily series of 1950-2100 a row) on 300
+   rows and on the 8,192 rows of the 1950-2100 grid, on seeded inputs with
+   NaN, -NaN, +-0, +-inf and heavy ties (above 16,384 also an all-NaN row,
+   a one-key row, tie runs across each chunk boundary with NaN among them
+   and -0 and +0 in different chunks), times both with CUDA events (not
+   at the edges) beside ``torch.sort`` of the same rows, and prints each
+   route's launch shape (threads a block, keys a lane, shared bytes,
+   resident blocks an SM, registers and spills; both kernels of the
+   staged route);
 4. holds the sliding sorted window (K5) bitwise against its plain version
    at config 5's shape (32,768 cells x 7,305 days, 31 windows), on a
    10-year ``noleap`` record and on a 3-year record whose entering buckets
@@ -69,8 +74,12 @@ with a non-zero exit at the first failure, it:
    device memory and stages;
 10. config 9a: ``QuantileMapper(detrend=True)`` fit + ``transform`` on the
     same data (K2 with one 730-long segment a row), with K2's time there;
-    then the same estimator on 64 cells of daily data from 1950-01-01 to
-    2100-12-31 (K2 at L = 55,152) against the CPU float64 path;
+    then config 9a over 1950-2100: the same estimator on 8,192 cells (64 x
+    128, about 5% NaN cells) of daily data from 1950-01-01 to 2100-12-31
+    (K2 at L = 55,152, its staged route), after one warm-up: wall, stages,
+    K2's launches and its CUDA-event time within the transform, peak
+    device memory, NaN cells NaN and 16 cells against the CPU float64
+    path;
 11. config 3: ``EquidistantCdfMatcher(kind="difference", extrapolate="both")``
     on 16,384 cells fit over 3,650 days, predicting 3,650 days (the
     equal-length identity branch) and 1,825 days (host bracket tables); no
@@ -118,8 +127,9 @@ with a non-zero exit at the first failure, it:
     cells/s, peak memory and stages;
 17. config 8 monthly (``group="month"``) on the same grid: K9 at
     month-length rows;
-18. config 8b: 16,384 valid cells (128 x 136, 1,024 NaN cells) in
-    2,048-cell chunks, one timed run of the grid runner; then config 8 at
+18. config 8b: 8,192 valid cells (128 x 68, 512 NaN cells) in 4 chunks
+    of 2,048 (BASELINE 8b's 16,384 cut to half), one timed run of the
+    grid runner; then config 8 at
     30 years (10,957 days, MBCn's usual calibration period, K9's
     shared-memory route): 22 launches of each K9 form, each on its route,
     and no plain version, 16 cells against the CPU float64 path by config
@@ -218,11 +228,18 @@ trials of K5, K6, K1 / K2 and K9 (or of the named sources: ``slide_sort``,
 against the default build, and timed beside it in turns at config 5 (K5),
 at config 8's fut block, config 9b's two calls, rows shaped as config G's
 ladder and mesh G's sketch row and three long rows with NaN knots (K6), at
-config 2's shape and config 5's K2 shape (K1, K2), config 9a's rows and
-20-year daily rows (K2), and at the monthly, dense daily and config 8 rows
+1950-2014 and 1950-2100 daily rows (K2's staged route against the search
+route before it: 300 rows, and the 1950-2100 grid's 8,192), and at the
+monthly, dense daily and config 8 rows
 (K9's unsort, ``scatter_`` beside) and 30-year, 1950-2014 and 1950-2100
 daily rows (K9's three forms on each route above 8,192), with each build's
 launch shape, registers and spills.
+
+``python3 chip_smoke.py --rank-map-times`` times only K1 and K2 through
+their wrappers at the main path's, config 5's and the 1950-2100 shapes,
+with the launches also queued behind a spin kernel; run from another
+tree's root (a copy of this file beside its package), it times that
+tree's kernels, so that two trees compare in one call.
 
 ``python3 chip_smoke.py --pipeline`` runs only the pipeline phase (23),
 to time a change of ``parallel/pipeline.py`` against another tree's in
@@ -272,10 +289,19 @@ KERNEL_SHAPES = [(N_CELLS, 12, 40), (65_536, 1, 7), (65_536, 1, 31), (16_384, 1,
 # 1,024 / 1,025 and the block route's 16,384 / 16,385 (bitwise, not timed)
 EDGE_SHAPES = [(4_096, 4, 64), (4_096, 4, 65), (2_048, 2, 256), (2_048, 2, 257),
                (512, 1, 1_024), (512, 1, 1_025), (128, 1, 16_384), (128, 1, 16_385)]
+# K2's staged route (L > 16,384) at each chunk-count edge (2 chunks of
+# 16,384 / 3; 3 of 16,384 / 4), at 1950-2014 daily and on one row of 2^20
+# (64 chunks of 16,384), bitwise, not timed
+LONG_EDGE_SHAPES = [(64, 1, 23_741), (32, 1, 32_768), (32, 1, 32_769), (32, 1, 49_152),
+                    (32, 1, 49_153), (1, 1, 2**20)]
 # K2 with one daily series of 1950-01-01 to 2100-12-31 a row (L = 55,152,
-# the search route), and the QuantileMapper grid of that length
+# the staged route) on 300 rows and on the rows of the 1950-2100 grid
 LONG_SHAPE = (300, 1, 55_152)
-LONG_CELLS, LONG_SIDE = 64, 8
+LONG_GRID_SHAPE = (8_192, 1, 55_152)
+# config 9a over 1950-2100: QuantileMapper(detrend=True) on a 64 x 128 grid
+# (8,192 cells, a state or a river basin at 0.25 degrees) of 55,152 days,
+# LONG_REF_CELLS of them against the CPU float64 path
+LONG_CELLS, LONG_LAT, LONG_LON, LONG_REF_CELLS = 8_192, 64, 128, 16
 # config 9 (bench.py:583-659): 65,536 cells, fit 4 y daily, predict 2 y
 Q_CELLS, Q_SIDE, Q_FIT, Q_PRED = 65_536, 256, 1_460, 730
 # config 3 (ROADMAP Queue 1 item 7): QDM, 16,384 cells, fit 10 y daily
@@ -299,11 +325,12 @@ G_REF_CELLS = 128
 TOL_GARD = (1e-3, 1e-3, 1e-3)
 # config 8 (bench.py:698-741, BASELINE config 8): MBCn with d = 3 variables,
 # 10 years daily (n = m = p = 3,650), 20 rotations, 2,048 cells (32 x 64);
-# config 8b: 16,384 valid cells (128 x 136 with 1,024 NaN cells) in
-# 2,048-cell chunks
+# config 8b: 8,192 valid cells (128 x 68 with 512 NaN cells) in 4 chunks
+# of 2,048 (BASELINE 8b's 16,384 valid cells cut to 4 of its 8 chunks, to
+# keep the script's phases near their time with the 1950-2100 grid added)
 M_CELLS, M_LAT, M_LON, M_T, M_D, M_ROT = 2_048, 32, 64, 3_650, 3, 20
 M_REF_CELLS = 128
-MB_LAT, MB_LON, MB_VALID, MB_CHUNK = 128, 136, 16_384, 2_048
+MB_LAT, MB_LON, MB_VALID, MB_CHUNK = 128, 68, 8_192, 2_048
 # config 8 at 30 years: MBCn's usual calibration period (1981-2010, 10,957
 # days), K9's long route; M30_REF_CELLS cells against the CPU float64 path
 M30_T, M30_REF_CELLS = 10_957, 16
@@ -611,6 +638,39 @@ def adversarial(rng, rows, L):
     return x
 
 
+def long_adversarial(g, rows, L, dev):
+    """Seeded float32 (rows, L > 16,384) made on the card: the values of
+    ``adversarial`` (NaN, -NaN, +-inf and +-0 at random places, a quarter of
+    the rows with heavy ties, 1% all-equal rows) and, for K2's staged route,
+    row 0 all NaN and row 1 one key (where there are more than two rows),
+    and in every other row a tie run across each chunk boundary with NaN
+    among it, -0 in the first chunk and +0 in the last."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import rank_map as K
+
+    x = torch.randn((rows, L), generator=g, device=dev)
+    x *= 50.0
+    bits = x.view(-1).view(torch.int32)
+    n = bits.numel()
+    for word, share in ((0x7FC00000, 0.002), (-0x400000, 0.001), (0x7F800000, 0.002), (-0x800000, 0.002),
+                        (0, 0.002), (-0x80000000, 0.002)):  # NaN, -NaN, +inf, -inf, +0, -0
+        bits[torch.randint(0, n, (max(1, int(n * share)),), generator=g, device=dev)] = word
+    tied = torch.rand(rows, generator=g, device=dev) < 0.25
+    x[tied] = torch.round(x[tied] / 25.0) * 25.0  # heavy ties (and -0 from rounding)
+    x[torch.rand(rows, generator=g, device=dev) < 0.01] = 7.0  # all-equal rows
+    C, Lc = K.long_chunks(L)
+    first = 0
+    if rows > 2:
+        x[0], x[1], first = float("nan"), 7.0, 2
+    for b in range(Lc, L, Lc):
+        x[first:, b - 40 : b + 40] = 12.5
+        x[first:, [b - 3, b + 5]] = float("nan")
+    x[first:, torch.randint(0, Lc, (6,), generator=g, device=dev)] = -0.0
+    x[first:, torch.randint((C - 1) * Lc, L, (6,), generator=g, device=dev)] = 0.0
+    return x
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     import torch
 
@@ -670,22 +730,35 @@ def rank_map_ptxas(kernel, geo):
     """The ``-Xptxas -v`` line of the kernel that a K1 / K2 launch of
     geometry ``geo`` runs first, as a mangled-name fragment."""
     items = geo["items"]
+    long_route = f"sort_chunks_kernelILi{items}E"
     return {"packed": f"packed_kernelILb{int(kernel == 'count_sort_segments')}E",
             "warp": f"{'count_sort' if kernel == 'count_sort_segments' else 'rank_map'}_warp_kernelILi{items}E",
             "block": f"rank_map_block_kernelILi{items}E",
-            "search": f"sort_chunks_kernelILi{items}E"}[geo["route"]]
+            "staged": long_route, "search": long_route}[geo["route"]]
+
+
+# the second kernel of each long route of K2, as a mangled-name fragment
+RANK_MAP_SECOND = {"staged": "20staged_search_kernel", "search": "13search_kernel"}
 
 
 def describe_rank_map(kernel, L, log, lib=None):
     """K1 / K2's route and launch shape at length ``L`` (of the default
-    build, or of ``lib``), with registers and spills from its build log."""
+    build, or of ``lib``; both kernels of a long route), with registers
+    and spills from its build log."""
     from skdownscale_tpu_torch.kernels import rank_map as K
 
     geo = K.launch_geometry(kernel, L, lib)
-    return (f"route {geo['route']}, {geo['threads']} threads a block, {geo['items']} "
+    line = (f"route {geo['route']}, {geo['threads']} threads a block, {geo['items']} "
             f"{'elements a thread' if geo['route'] == 'packed' else 'keys a lane'}, "
             f"{geo['smem_bytes']} B shared a block, {geo['blocks_per_sm']} resident blocks an SM; "
             f"{ptxas_of(log, rank_map_ptxas(kernel, geo))}")
+    second = geo["second"]
+    if second is not None:
+        line += (f"; then {RANK_MAP_SECOND[geo['route']]}: {second['threads']} threads a block, "
+                 f"{second['items']} queries a thread, {second['smem_bytes']} B shared a block, "
+                 f"{second['blocks_per_sm']} resident blocks an SM; "
+                 f"{ptxas_of(log, RANK_MAP_SECOND[geo['route']])}")
+    return line
 
 
 def config5_k2_shape():
@@ -702,8 +775,10 @@ def config5_k2_shape():
 
 def kernel_phase(rng, dev):
     """K1 and K2 bitwise against their plain versions at KERNEL_SHAPES,
-    config 5's K2 shape, the route edges (EDGE_SHAPES) and LONG_SHAPE, with
-    each route's launch shape; timed at all but the edges."""
+    config 5's K2 shape, the route edges (EDGE_SHAPES), the staged route's
+    edges (LONG_EDGE_SHAPES), LONG_SHAPE and LONG_GRID_SHAPE, with each
+    route's launch shape; timed at all but the edges.  Rows above 16,384
+    (K2's staged route) are made on the card by ``long_adversarial``."""
     import torch
 
     from skdownscale_tpu_torch.kernels import build
@@ -711,11 +786,17 @@ def kernel_phase(rng, dev):
 
     log = build.build("rank_map").log
     shapes = [(*s, True) for s in (*KERNEL_SHAPES, config5_k2_shape())]
-    shapes += [(*s, False) for s in EDGE_SHAPES] + [(*LONG_SHAPE, True)]
+    shapes += [(*s, False) for s in (*EDGE_SHAPES, *LONG_EDGE_SHAPES)]
+    shapes += [(*s, True) for s in (LONG_SHAPE, LONG_GRID_SHAPE)]
+    g = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
     for B, G, L, timed in shapes:
-        x = torch.from_numpy(adversarial(rng, B * G, L).reshape(B, G * L)).to(dev)
-        res = torch.from_numpy(rng.normal(0.0, 1.0, (B * G, L)).astype(np.float32)).to(dev)
+        if L > K.BLOCK_MAX:
+            x = long_adversarial(g, B * G, L, dev).reshape(B, G * L)
+            res = torch.randn((B * G, L), generator=g, device=dev)
+        else:
+            x = torch.from_numpy(adversarial(rng, B * G, L).reshape(B, G * L)).to(dev)
+            res = torch.from_numpy(rng.normal(0.0, 1.0, (B * G, L)).astype(np.float32)).to(dev)
         res = torch.sort(res, dim=1).values.reshape(B, G * L)  # the values np.sort gives
         runs = {"rank_map_segments": (lambda: K.rank_map_segments(x, res, L),
                                       lambda: K.rank_map_segments_plain(x, res, L))}
@@ -733,7 +814,7 @@ def kernel_phase(rng, dev):
             _check(K.launch_geometry(name, L)["route"] == K.route(name, L),
                    f"{name} L={L}: the build's route is not kernels/rank_map.route's")
             got = kernel()
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # a fault of the launch shows here
             err = bitwise_err(got, plain(), f"{name} B={B} G={G} L={L}")
             del got
             shape = describe_rank_map(name, L, log)
@@ -753,6 +834,31 @@ def kernel_phase(rng, dev):
                                  "library_ms": sort_ms if name == "count_sort_segments" else None}
         del x, res
     return results
+
+
+def rank_map_times(dev):
+    """``--rank-map-times``: K1 and K2 at KERNEL_SHAPES, config 5's K2 shape
+    and LONG_SHAPE, each through its wrapper (CUDA events over 20 calls)
+    and queued behind a spin kernel (``queued_ms``: the card's time, not
+    the host's issue), on ``adversarial`` data from SEED.  It uses only the
+    wrappers, so that the same file can time another tree's package in one
+    call (run it from that tree's root)."""
+    import torch
+
+    from skdownscale_tpu_torch.kernels import rank_map as K
+
+    rng = np.random.default_rng(SEED)
+    for B, G, L in (*KERNEL_SHAPES, config5_k2_shape(), LONG_SHAPE):
+        x = torch.from_numpy(adversarial(rng, B * G, L).reshape(B, G * L)).to(dev)
+        res = torch.from_numpy(rng.normal(0.0, 1.0, (B * G, L)).astype(np.float32)).to(dev)
+        res = torch.sort(res.view(B * G, L), dim=1).values.reshape(B, G * L)
+        runs = {"rank_map_segments": lambda: K.rank_map_segments(x, res, L)}
+        if L <= K.COUNT_SORT_MAX_LEN:
+            runs["count_sort_segments"] = lambda: K.count_sort_segments(x, L)
+        for name, run in runs.items():
+            print(f"rank_map times: {name} B={B} G={G} L={L}: wrapper {cuda_ms(run):.4f} ms, "
+                  f"queued {queued_ms(run):.4f} ms")
+        del x, res
 
 
 def daily_index():
@@ -1361,7 +1467,6 @@ TRIALS = {
                ("device memory at every shape", ("SDT_K6_ROUTE=2",)),
                ("staged, 256 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=256")),
                ("staged, 512 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=512")),
-               ("the long-row route from 32,768 knots", ("SDT_K6_LONG_MIN=32768",)),
                ("no long-row route", ("SDT_K6_LONG_MIN=0",))),
     "sort_rows": (("the unsort a block a row", ("SDT_K9_UNSORT_ROUTE=1",)),
                   ("the unsort a warp a row up to 1,024", ("SDT_K9_UNSORT_ROUTE=2",)),
@@ -1370,18 +1475,7 @@ TRIALS = {
                   ("shared memory at 16 warps of 24 items", ("SDT_K9_SMEM_WARPS=16", "SDT_K9_SMEM_ITEMS=24")),
                   ("shared memory at 32 warps of 8 items", ("SDT_K9_SMEM_ITEMS=8",)),
                   ("clusters of 16 warps of 28 items", ("SDT_K9_CLUSTER_WARPS=16", "SDT_K9_CLUSTER_ITEMS=28"))),
-    "rank_map": (("one key a thread on the packed route", ("SDT_RANK_PACKED_ITEMS=1",)),
-                 ("two keys a thread on the packed route", ("SDT_RANK_PACKED_ITEMS=2",)),
-                 ("512 threads a packed block", ("SDT_RANK_PACKED_THREADS=512",)),
-                 ("compares as the compiler forms them", ("SDT_RANK_COUNT=1",)),
-                 ("K1 with the stable rank", ("SDT_K1_STABLE=1",)),
-                 ("K1's packed route up to 256", ("SDT_K1_SHORT_MAX=256",)),
-                 ("K2's packed route up to 64", ("SDT_K2_SHORT_MAX=64",)),
-                 ("every L on the radix routes", ("SDT_K1_SHORT_MAX=0", "SDT_K2_SHORT_MAX=0")),
-                 ("run ends by a shuffle scan", ("SDT_RANK_RUN_END=0",)),
-                 ("no floor on K2's warp route's resident blocks", ("SDT_RANK_WARP_MIN_BLOCKS=1",)),
-                 ("K2's warp route at 6 resident blocks an SM", ("SDT_RANK_WARP_MIN_BLOCKS=6",)),
-                 ("the search route above the packed route", ("SDT_K2_SEARCH_MIN=257",))),
+    "rank_map": (("the search route above 16,384", ("SDT_K2_SEARCH_ROUTE=1",)),),
 }
 
 
@@ -1390,9 +1484,9 @@ def trials(dev, sources):
     sources, or all) against the default build of its source, K5 at config
     5, K6 at config 8's fut block, config 9b's two calls, a row shaped as
     config G's pooled ladder, one as mesh G's merged sketch row and three
-    long rows with NaN knots, K1 and K2 at config 2's and config 5's K2
-    shape, K2 at config 9a's rows and at 20-year daily rows (the block
-    route), K9's unsort at the monthly, dense daily and config 8 rows (with
+    long rows with NaN knots, K2 at 1950-2014 and 1950-2100 daily rows (300
+    rows, and the 8,192 rows of the 1950-2100 grid: the staged route and
+    the search route), K9's unsort at the monthly, dense daily and config 8 rows (with
     ``scatter_`` timed beside) and its three forms at 30 years of days,
     1950-2014 and 1950-2100: outputs bitwise equal to the default's,
     CUDA-event times in turns
@@ -1524,29 +1618,17 @@ def trials(dev, sources):
             del x, v, pos
 
     if "rank_map" in sources:
-        c5_rows, c5_g, c5_l = config5_k2_shape()
-        cases = [("count_sort_segments", "config 2", N_CELLS, 12, 40),
-                 ("rank_map_segments", "config 2", N_CELLS, 12, 40),
-                 ("count_sort_segments", "config 5", c5_rows, c5_g, c5_l),
-                 ("rank_map_segments", "config 5", c5_rows, c5_g, c5_l),
-                 ("rank_map_segments", "config 9a rows", 62_245, 1, Q_PRED),
-                 ("rank_map_segments", "20-year daily rows", 8_192, 1, D_TIME)]
-        for kernel, name, B, G, L in cases:
-            x = torch.from_numpy(adversarial(rng, B * G, L).reshape(B, G * L)).to(dev)
-            res = torch.from_numpy(rng.normal(0.0, 1.0, (B * G, L)).astype(np.float32)).to(dev)
-            res = torch.sort(res, dim=1).values.reshape(B, G * L)
-            if kernel == "count_sort_segments":
-                def run(lib):
-                    return K.launch_count_sort(lib, x, L)
-            else:
-                def run(lib):
-                    return K.launch_rank_map(lib, x, res, L)
-            print(f"trials {kernel} {name} (B={B}, G={G}, L={L})")
-            turns("rank_map", run,
-                  lambda got, want, label: bitwise_err(got, want, f"{kernel} {name} trial {label}"),
-                  lambda lib: str(K.launch_geometry(kernel, L, lib)),
-                  lambda label: rank_map_ptxas(kernel, K.launch_geometry(
-                      kernel, L, libs[("rank_map", label)])))
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        for name, B, L in (("1950-2014 daily rows", 2_048, K9_1950_2014), ("1950-2100 daily rows", *LONG_SHAPE[::2]),
+                           ("the 1950-2100 grid's rows", *LONG_GRID_SHAPE[::2])):
+            x = long_adversarial(g, B, L, dev)
+            res = torch.sort(torch.randn((B, L), generator=g, device=dev), dim=1).values
+            print(f"trials rank_map_segments {name} (B={B}, L={L})")
+            turns("rank_map", lambda lib: K.launch_rank_map(lib, x, res, L),
+                  lambda got, want, label: bitwise_err(got, want, f"rank_map_segments {name} trial {label}"),
+                  lambda lib: str(K.launch_geometry("rank_map_segments", L, lib)),
+                  lambda label: RANK_MAP_SECOND[K.launch_geometry(
+                      "rank_map_segments", L, libs[("rank_map", label)])["route"]])
             del x, res
 
 
@@ -1610,12 +1692,15 @@ def check_against_cpu(label, got, X, Y, Xq, nan_cells, make_model, apply, rng, n
            f"{label}: the GPU output is outside the stated tolerance of the CPU float64 path")
 
 
-def run_registry_grid(label, make_model, X, Y, Xq, nan_cells, apply, card, dev, rng, n_ref):
+def run_registry_grid(label, make_model, X, Y, Xq, nan_cells, apply, card, dev, rng, n_ref, around=None):
     """Warm-up and one timed ``PointWiseDownscaler`` fit + ``apply``
     (predict or transform) on the card, with the launch counts set to 0
-    just before the timed run and read just after; then the CPU float64
-    check, wall, cells/s, peak memory and the stages.  Returns the
+    just before the timed run and read just after (``around()``, where
+    given, a context entered around the timed run alone); then the CPU
+    float64 check, wall, cells/s, peak memory and the stages.  Returns the
     launches."""
+    import contextlib
+
     import torch
 
     import skdownscale_tpu_torch as sdt
@@ -1632,9 +1717,10 @@ def run_registry_grid(label, make_model, X, Y, Xq, nan_cells, apply, card, dev, 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    t0 = time.perf_counter()
-    out = run()
-    wall = time.perf_counter() - t0
+    with around() if around else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out = run()
+        wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     got = np.asarray(out.values)
@@ -1716,45 +1802,70 @@ def k2_rows_time(X, nan_cells, dev):
 
 
 def long_rows_phase(rng, card, dev):
-    """The daily series of 1950-2100 (L = 55,152, K2's search route):
-    ``PointWiseDownscaler(QuantileMapper(detrend=True))`` fit + transform on
-    a small grid of that length on the card, K2 launched, NaN cells NaN and
-    every cell against the CPU float64 path.  (K2 itself is held bitwise at
-    LONG_SHAPE in the kernel phase.)"""
+    """Config 9a over 1950-2100: ``PointWiseDownscaler(QuantileMapper(
+    detrend=True))`` fit + transform of LONG_CELLS cells (LONG_LAT x
+    LONG_LON, about 5% NaN cells) x 55,152 days, one daily series of
+    1950-01-01 to 2100-12-31 a cell (K2 at L = 55,152, its staged route), on
+    the card after one warm-up (``run_registry_grid``): wall, stages, peak
+    memory, NaN cells NaN and LONG_REF_CELLS cells against the CPU float64
+    path, and K2's launches and CUDA-event time within the timed run's
+    transform.  The grid is made once, from the phase's seed.  (K2 itself
+    is held bitwise at LONG_SHAPE and LONG_GRID_SHAPE in the kernel
+    phase.)"""
+    import contextlib
+    from unittest import mock
+
     import pandas as pd
     import torch
 
     import skdownscale_tpu_torch as sdt
-    from skdownscale_tpu_torch.kernels import LAUNCHES
+    from skdownscale_tpu_torch.models import grouped
     from skdownscale_tpu_torch.xlite import DataArray
 
-    label = "long rows"
+    label = "config 9a 1950-2100"
     index = pd.date_range("1950-01-01", "2100-12-31", freq="D")
     T = len(index)
     _check(T == LONG_SHAPE[2], f"{label}: {T} days, not {LONG_SHAPE[2]}")
-    nan_cells = np.zeros(LONG_CELLS, bool)
-    nan_cells[rng.choice(LONG_CELLS, 3, replace=False)] = True
+    nan_cells = rng.random(LONG_CELLS) < NAN_CELL_SHARE
     seas = (10.0 * np.sin(2 * np.pi * (index.dayofyear.to_numpy() - 1) / 365.25)).astype(np.float32)
     trend = np.linspace(0.0, 3.0, T, dtype=np.float32)
-    a = (283.0 + seas + trend)[:, None] + 2.0 * rng.standard_normal((T, LONG_CELLS), dtype=np.float32)
+    a = rng.standard_normal((T, LONG_CELLS), dtype=np.float32)
+    a *= 2.0
+    a += (283.0 + seas + trend)[:, None]
     a[:, nan_cells] = np.nan
-    coords = {"time": index, "lat": np.arange(LONG_SIDE), "lon": np.arange(LONG_SIDE)}
-    X = DataArray(a.reshape(T, LONG_SIDE, LONG_SIDE), ("time", "lat", "lon"), coords)
+    coords = {"time": index, "lat": np.arange(LONG_LAT), "lon": np.arange(LONG_LON)}
+    X = DataArray(a.reshape(T, LONG_LAT, LONG_LON), ("time", "lat", "lon"), coords)
+    del a
+    print(f"{label}: grid {T} days (1950-01-01 to 2100-12-31) x {LONG_CELLS} cells ({LONG_LAT} x {LONG_LON}) "
+          f"float32, {int(nan_cells.sum())} NaN cells, {X.values.nbytes / 1e9:.3f} GB")
+    k2_events = []
 
-    def make_model():
-        return sdt.QuantileMapper(detrend=True)
+    @contextlib.contextmanager
+    def k2_timed():
+        """CUDA events around each K2 call of the run (apply_ranked_rows
+        reaches K2 through grouped.rank_map_segments)."""
+        real = grouped.rank_map_segments
 
+        def timed(*args, **kw):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kw)
+            stop.record()
+            k2_events.append((start, stop))
+            return out
+
+        with mock.patch.object(grouped, "rank_map_segments", timed):
+            yield
+
+    launches = run_registry_grid(label, lambda: sdt.QuantileMapper(detrend=True), X, None, X, nan_cells,
+                                 "transform", card, dev, rng, LONG_REF_CELLS, around=k2_timed)
     torch.cuda.synchronize()
-    LAUNCHES.clear()
-    t0 = time.perf_counter()
-    got = np.asarray(sdt.PointWiseDownscaler(make_model(), device=dev).fit(X).transform(X).values)
-    wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    _check(launches.get("rank_map_segments", 0) >= 1, f"{label}: K2 was not launched: {launches}")
-    check_against_cpu(label, got, X, None, X, nan_cells, make_model, "transform", rng, LONG_CELLS)
-    print(f"{label}: PointWiseDownscaler(QuantileMapper(detrend=True)) fit + transform of "
-          f"{LONG_CELLS} cells x {T} days (1950-01-01 to 2100-12-31): wall {wall:.4f} s (the first "
-          f"run: no warm-up); launches {launches}; card {card}")
+    k2_ms = [start.elapsed_time(stop) for start, stop in k2_events]
+    _check(launches.get("rank_map_segments", 0) >= 1 and len(k2_ms) == launches["rank_map_segments"],
+           f"{label}: K2 launches {launches}, {len(k2_ms)} timed")
+    print(f"{label}: K2 within the timed run's transform: {launches['rank_map_segments']} launch(es) on "
+          f"{int((~nan_cells).sum())} rows of {T}, {sum(k2_ms):.4f} ms on the card (CUDA events: "
+          + ", ".join(f"{ms:.4f}" for ms in k2_ms) + f"); card {card}")
 
 
 def config3_phase(rng, card, dev):
@@ -2473,7 +2584,7 @@ def mbcn_stages(Y, XH, XF, dev):
 
 
 def config8b_phase(rng, card, dev):
-    """Config 8b: 16,384 valid cells in 2,048-cell chunks, one timed
+    """Config 8b: MB_VALID valid cells in MB_CHUNK-cell chunks, one timed
     ``mbcn_grid`` run (the kernels are built and warm): launches per chunk,
     NaN cells NaN, valid cells finite, wall and cells/s."""
     import torch
@@ -3948,6 +4059,10 @@ def main() -> int:
         print(card)  # nvidia-smi's own line: name, power limit
         if sys.argv[1:2] == ["--trials"]:
             trials(torch.device("cuda", 0), sys.argv[2:])
+            print(card)
+            return 0
+        if sys.argv[1:2] == ["--rank-map-times"]:
+            rank_map_times(torch.device("cuda", 0))
             print(card)
             return 0
         if sys.argv[1:2] == ["--pipeline"]:

@@ -44,9 +44,9 @@
 //   K1: c = #{s : k_s <= k_t} (the run end), sorted[c - 1] = k_t into a
 //   shared row preset to the largest key; at the coalesced store each slot
 //   left unset (a tie hole) takes the next set slot's key, by a walk as long
-//   as the tie run.  The stable rank, #{k_s < k_t} + #{s < t : k_s ==
-//   k_t}, fills every slot once but costs three compares a member
-//   (SDT_K1_STABLE=1 builds it).
+//   as the tie run.  (The stable rank, #{k_s < k_t} + #{s < t : k_s ==
+//   k_t}, fills every slot once but costs three compares a member: 0.8405
+//   ms against 0.5556 at config 2 in --trials on an H100 at 700 W.)
 // * warp (above the packed route, L <= 1,024): a warp a segment, four a
 //   block.  K1 sorts the segment with the stable LSD radix sort of
 //   radix_sort.cuh (K9's warp route; K1 takes L <= 256).  K2 folds each
@@ -64,12 +64,19 @@
 //   warp's chunk, the first key and the first run end of each chunk are
 //   exchanged through shared memory (two barriers), and the row goes out
 //   through the key buffer as on the warp route.
-// * search (L > 16,384, K2): positions no longer fit 16 bits and a row no
-//   longer fits shared memory, so a first kernel sorts the folded keys of
-//   each chunk of at most 16,384 (a block a chunk, the block sort) into a
-//   device-memory scratch row, and a second gives each query
-//   c = sum over chunks of upper_bound(chunk, key), out = res[c - 1].  Any
-//   L takes it (a daily series of 1950-2100 has L = 55,152).
+// * staged (L > 16,384, K2): positions no longer fit 16 bits and a row no
+//   longer fits shared memory, so the row is cut into C = ceil(L / 16,384)
+//   chunks of Lc = ceil(L / C) (the last shorter).  A first kernel sorts
+//   the folded keys of each chunk (a block a chunk, the block sort) into a
+//   64 KB slot of a device-memory scratch row, laid out as a search tree
+//   (below); a second takes a block a (row, chunk of queries), holds its
+//   queries in registers in element order, stages the row's sorted chunks
+//   one after another into shared memory (cp.async, two buffers: the next
+//   chunk comes in while the block searches this one), and every query
+//   searches each staged chunk there:
+//   c = sum over chunks of #{member <= key}, out = res[c - 1], stored in
+//   element order.  Any L takes it (a daily series of 1950-2100 has L =
+//   55,152: 4 chunks of 13,788).
 //
 // What bounds them on the H100.  The compulsory traffic is 8 B an element
 // for K1 and 12 B for K2 (0.15 / 0.23 ms at config 2's 6.3e7 elements at
@@ -78,18 +85,40 @@
 // of the SMs' issue, so issue and the bytes are of the same size, and the
 // pipeline overlaps the two.  The radix routes spend some 60 warp
 // instructions a pass on 32 items (radix_sort.cuh), so issue and
-// shared-memory latency bound them, far above the bytes.  The search
-// route is a repair: a binary search of device memory a chunk a query.
+// shared-memory latency bound them, far above the bytes.
+//   The staged route does C searches of 14 probes a query, so it grows as
+// L^2 / 16,384: at L = 55,152, 56 probes a query.  On the search route
+// that it replaces (the trial switch below) those probes are dependent
+// loads of device memory, a 32 B sector for 4 B used, with nothing shared
+// between the threads that search one chunk.  Here each sorted chunk
+// crosses to an SM once a block that uses it (C times a row, 16 B an
+// element at C = 4, mostly from L2: the row's C blocks run side by side),
+// and the probes are shared-memory loads, which bank conflicts bound.  A
+// sorted array searched by halving puts every probe of a level with a
+// step of 32 or more in one bank (index = 31 mod 32): up to 32 ways.  So a
+// chunk is stored as an implicit search tree in breadth-first order
+// (slot 1 the root, node i's children 2i and 2i + 1, the 14 levels of a
+// perfect tree of 16,383 members; slot 0 the 16,384th sorted slot):
+// level d is 2^d contiguous words, so levels below 6 never conflict and
+// deeper ones conflict as random addresses do (about 3.5 ways).  The
+// 16,384th member (a chunk of exactly 16,384) is slot 0: the tree counts
+// the first 16,383, and the count takes one more where slot 0 <= key.
+// Pads (0xffffffff, NaN's key) never count.  res[c - 1] stays a gather
+// of 4 B (mostly L2 hits: a row's res is 220 KB).  At large L the staged
+// chunks are C^2 x 64 KB a row (at L = 10^6, 61 chunks, 14 probes of
+// shared memory each, against 61 x 14 dependent device-memory loads).  On
+// an H100 (700 W) at 55,152 the chunk sort takes about 60% of the route's
+// time (about 39 ps an element: one block of 14 warps of 32 keys an SM, at
+// 115 registers), the search the rest.
 //
-// Trial switches (chip_smoke.py --trials builds each and times it against
-// the default): SDT_K1_SHORT_MAX / SDT_K2_SHORT_MAX (the packed route's
-// longest L; 0 sends every L to the radix routes), SDT_RANK_PACKED_ITEMS
-// (keys a thread counts on the packed route), SDT_RANK_PACKED_THREADS
-// (threads a packed block), SDT_RANK_COUNT (1: the compiler's form of the
-// compare), SDT_RANK_RUN_END (0: run ends by a reverse min-scan of
-// shuffles), SDT_RANK_WARP_MIN_BLOCKS (K2's warp route's floor on resident
-// blocks an SM up to 24 keys a lane, 8, which caps its registers), SDT_K1_STABLE (K1's stable
-// rank), SDT_K2_SEARCH_MIN (the shortest L of the search route).
+// The one trial switch (chip_smoke.py --trials builds it and times it
+// against the default): SDT_K2_SEARCH_ROUTE=1 takes the route above 16,384
+// that came before this one (the "search" route), for a same-call
+// comparison: the same chunk sort, written in sorted order, then a thread
+// a query searching each chunk in device memory.  No default build takes
+// it.  The other knobs that the trials settled are constants below, each
+// with its trial result (config 2's K1 / K2 ms unless said otherwise; H100
+// 80GB HBM3, 700 W).
 //
 // The C entry points take plain pointers, sizes and the CUDA stream, launch
 // on that stream without synchronising, and return cudaGetLastError();
@@ -104,61 +133,56 @@
 
 #include "radix_sort.cuh"
 
-#ifndef SDT_K1_SHORT_MAX
-#define SDT_K1_SHORT_MAX 64
-#endif
-#ifndef SDT_K2_SHORT_MAX
-#define SDT_K2_SHORT_MAX 256
-#endif
-#ifndef SDT_RANK_PACKED_ITEMS
-#define SDT_RANK_PACKED_ITEMS 4
-#endif
-#ifndef SDT_RANK_PACKED_THREADS
-#define SDT_RANK_PACKED_THREADS 256
-#endif
-#ifndef SDT_RANK_COUNT
-#define SDT_RANK_COUNT 0
-#endif
-#ifndef SDT_RANK_RUN_END
-#define SDT_RANK_RUN_END 1
-#endif
-#ifndef SDT_RANK_WARP_MIN_BLOCKS
-#define SDT_RANK_WARP_MIN_BLOCKS 8
-#endif
-#ifndef SDT_K1_STABLE
-#define SDT_K1_STABLE 0
-#endif
-#ifndef SDT_K2_SEARCH_MIN
-#define SDT_K2_SEARCH_MIN 16385
+#ifndef SDT_K2_SEARCH_ROUTE
+#define SDT_K2_SEARCH_ROUTE 0
 #endif
 
 namespace {
 
 using namespace radix;
 
-constexpr int kK1ShortMax = SDT_K1_SHORT_MAX;  // longest L of K1's packed route
-constexpr int kK2ShortMax = SDT_K2_SHORT_MAX;  // longest L of K2's packed route
-constexpr int kPackedThreads = SDT_RANK_PACKED_THREADS;  // most threads a packed block
-constexpr int kPackedItems = SDT_RANK_PACKED_ITEMS;  // keys a thread counts on the packed route
+// longest L of K1's packed route (K1 packed at config 5's L = 240: 1.5669
+// ms, against 1.2440 on the warp route)
+constexpr int kK1ShortMax = 64;
+// longest L of K2's packed route (K2's warp route at config 5's L = 240:
+// 1.5592 ms, against 1.2731 packed)
+constexpr int kK2ShortMax = 256;
+// most threads a packed block (512 ran the same)
+constexpr int kPackedThreads = 256;
+// keys a thread counts on the packed route (1 key: 0.8147 / 0.5973 ms; 2
+// keys: 0.6626 / 0.4518; 4 keys: 0.5556 / 0.3673)
+constexpr int kPackedItems = 4;
+// K2's warp route's floor on resident blocks an SM up to 24 keys a lane,
+// which caps its registers (config 9a's rows, L = 730: no floor 1.8036 ms,
+// a floor of 6 1.4137, of 8 1.3022)
+constexpr int kWarpMinBlocks = 8;
 constexpr int kRowsPerBlock = 4;               // warps (segments) a block on the warp route
 constexpr int kK1MaxLen = 256;                 // COUNT_SORT_MAX_LEN of kernels/rank_map.py
-constexpr int kBlockMaxLen = 16384;            // longest L of the block route (and a chunk)
-constexpr int kSearchMin = SDT_K2_SEARCH_MIN;  // shortest L of the search route
-constexpr int kSearchThreads = 256;
+constexpr int kBlockMaxLen = 16384;            // longest L of the block route (and of a chunk)
+constexpr int kChunkSlots = kBlockMaxLen;      // words of a chunk's slot, in scratch and staged
+constexpr int kTreeLevels = 14;                // levels of a chunk's search tree (2^14 - 1 members)
+constexpr int kStagedItems = 16;               // queries a thread on the staged route
+constexpr int kStagedMaxThreads = kChunkSlots / kStagedItems;
+constexpr int kSearchThreads = 256;            // threads a block of the search trial
+constexpr bool kSearchTrial = SDT_K2_SEARCH_ROUTE != 0;
 constexpr uint32_t kNanKey = 0xffffffffu;  // every NaN query's folded key
 static_assert(kK1ShortMax <= kPackedThreads * kPackedItems &&
                   kK2ShortMax <= kPackedThreads * kPackedItems,
               "a packed block holds a segment");
+static_assert(kChunkSlots == 1 << kTreeLevels, "a chunk's slot is slot 0 and a perfect tree");
 
-enum Route { kPacked = 0, kWarp = 1, kBlock = 2, kSearch = 3 };
+enum Route { kPacked = 0, kWarp = 1, kBlock = 2, kStaged = 3, kSearch = 4 };
 
 int k1_route(int L) { return L <= kK1ShortMax ? kPacked : kWarp; }
 
 int k2_route(int L) {
   if (L <= kK2ShortMax) return kPacked;
-  if (L >= kSearchMin) return kSearch;
-  return L <= kWarpRouteMaxLen ? kWarp : L <= kBlockMaxLen ? kBlock : kSearch;
+  if (L <= kWarpRouteMaxLen) return kWarp;
+  if (L <= kBlockMaxLen) return kBlock;
+  return kSearchTrial ? kSearch : kStaged;
 }
+
+bool long_route(int route) { return route == kStaged || route == kSearch; }
 
 __device__ __forceinline__ int32_t ordered_key(float v) {
   const int32_t b = __float_as_int(v);
@@ -183,26 +207,18 @@ __device__ __forceinline__ float nan_value() { return __int_as_float(0x7fc00000)
 
 // c + (a <= b) (false where a or b is NaN): the packed route's compare, a
 // compare into a predicate and an add under it, two instructions.  The
-// compiler's own form of `c += (a <= b)` (SDT_RANK_COUNT=1) takes three: a
-// compare, an add and a move under the predicate.
+// compiler's own form of `c += (a <= b)` takes three: a compare, an add and
+// a move under the predicate (0.6532 / 0.4401 ms against 0.5556 / 0.3673).
 __device__ __forceinline__ int count_le(int c, float a, float b) {
-#if SDT_RANK_COUNT == 0
   asm("{\n\t.reg .pred p;\n\tsetp.le.f32 p, %1, %2;\n\t@p add.s32 %0, %0, 1;\n\t}"
       : "+r"(c) : "f"(a), "f"(b));
   return c;
-#else
-  return c + (a <= b);
-#endif
 }
 
 __device__ __forceinline__ int count_le(int c, int32_t a, int32_t b) {
-#if SDT_RANK_COUNT == 0
   asm("{\n\t.reg .pred p;\n\tsetp.le.s32 p, %1, %2;\n\t@p add.s32 %0, %0, 1;\n\t}"
       : "+r"(c) : "r"(a), "r"(b));
   return c;
-#else
-  return c + (a <= b);
-#endif
 }
 
 // c + #{w.x, w.y, w.z, w.w <= b}
@@ -322,32 +338,14 @@ __global__ void __launch_bounds__(kPackedThreads) packed_kernel(RANK_MAP_ARGS) {
         const int4* seg = reinterpret_cast<const int4*>(row);
         for (int k = 0; k < Lp / 4; ++k) {
           const int4 w = seg[k];
-#if SDT_K1_STABLE
-          // stable rank: #{k_s < k_t} + #{s < t : k_s == k_t}; a pad
-          // (INT32_MAX, place >= L) never counts
-          const int p0 = 4 * k;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const int t = u + r * U;
-            c[r] += (w.x < kt[r]) | ((w.x == kt[r]) & (p0 < t));
-            c[r] += (w.y < kt[r]) | ((w.y == kt[r]) & (p0 + 1 < t));
-            c[r] += (w.z < kt[r]) | ((w.z == kt[r]) & (p0 + 2 < t));
-            c[r] += (w.w < kt[r]) | ((w.w == kt[r]) & (p0 + 3 < t));
-          }
-#else
 #pragma unroll
           for (int r = 0; r < R; ++r) c[r] = count_le4(c[r], w, kt[r]);
-#endif
         }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (u + r * U >= L) continue;
-#if SDT_K1_STABLE
-          row_out[s * Lp + c[r]] = kt[r];
-#else
           if (kt[r] == INT32_MAX) c[r] -= Lp - L;  // the pads' key is the largest key
           row_out[s * Lp + c[r] - 1] = kt[r];      // the run end; tied keys write the same bits
-#endif
         }
       } else {
         const float* row = stage + b * PL + s * Lp;
@@ -394,30 +392,12 @@ __global__ void __launch_bounds__(kPackedThreads) packed_kernel(RANK_MAP_ARGS) {
 // radix routes
 // ---------------------------------------------------------------------------
 
-// The run end of sorted slot m = (item start) + lane by a reverse min-scan
-// (SDT_RANK_RUN_END=0): the least end slot >= m, an end being the row's
-// last slot (or a slot past it) or a slot whose key differs from the next
-// slot's.  `after` is the key of the slot after the item's lane 31,
-// `carry` the least end after the item (INT_MAX if none is known).  Every
-// lane of the warp calls it.
-__device__ __forceinline__ int run_end(uint32_t key, uint32_t after, int m, int last, int carry,
-                                       int lane) {
-  uint32_t next = __shfl_down_sync(kFull, key, 1);
-  if (lane == 31) next = after;
-  int j = (m >= last || key != next) ? m : INT_MAX;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_down_sync(kFull, j, d);
-    if (lane + d < 32) j = min(j, o);
-  }
-  return min(j, carry);
-}
-
-// The same run end from the lanes that hold the item's key
-// (__match_any_sync, the default): the highest of them, or `carry` (the next item's
-// lane 0's run end) where the run goes on past lane 31 into the next slot,
-// which is in the row when `more`.  A NaN key's run may take pad lanes;
-// its run end is not used.
+// The run end of sorted slot (item start) + lane from the lanes that hold
+// the item's key (__match_any_sync): the highest of them, or `carry` (the
+// next item's lane 0's run end) where the run goes on past lane 31 into the
+// next slot, which is in the row when `more`.  A NaN key's run may take pad
+// lanes; its run end is not used.  (A reverse min-scan of shuffles took
+// 1.3631 ms at config 9a's rows, against 1.3022.)
 __device__ __forceinline__ int run_end_match(uint32_t key, uint32_t after, bool more, int base,
                                              int carry) {
   const int hi = 31 - __clz(__match_any_sync(kFull, key));
@@ -457,7 +437,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) count_sort_warp_kernel(RAN
 // the extra warps hide is worth more than the spills (PERF.md, the
 // trials).
 template <int ITEMS>
-__global__ void __launch_bounds__(32 * kRowsPerBlock, ITEMS <= 24 ? SDT_RANK_WARP_MIN_BLOCKS : 1)
+__global__ void __launch_bounds__(32 * kRowsPerBlock, ITEMS <= 24 ? kWarpMinBlocks : 1)
     rank_map_warp_kernel(RANK_MAP_ARGS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -481,11 +461,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock, ITEMS <= 24 ? SDT_RANK_WAR
   for (int i = ITEMS - 1; i >= 0; --i) {
     if (i * 32 >= L) continue;  // the same for every lane
     const int m = i * 32 + lane;
-#if SDT_RANK_RUN_END
     const int j = run_end_match(key[i], after, i * 32 + 32 < L, i * 32, carry);
-#else
-    const int j = run_end(key[i], after, m, L - 1, carry, lane);
-#endif
     carry = __shfl_sync(kFull, j, 0);
     after = __shfl_sync(kFull, key[i], 0);
     if (m < L) buf[pr[i] >> 16] = key[i] == kNanKey ? nan_value() : r[min(j, L - 1)];
@@ -523,11 +499,7 @@ __global__ void __launch_bounds__(32 * kBlockRouteMaxWarps) rank_map_block_kerne
 #pragma unroll
   for (int i = ITEMS - 1; i >= 0; --i) {
     if (i * 32 >= n) continue;  // the same for every lane of the warp
-#if SDT_RANK_RUN_END
     const int j = run_end_match(key[i], after, c0 + i * 32 + 32 < L, c0 + i * 32, carry);
-#else
-    const int j = run_end(key[i], after, c0 + i * 32 + lane, L - 1, carry, lane);
-#endif
     carry = __shfl_sync(kFull, j, 0);
     after = __shfl_sync(kFull, key[i], 0);
     pr[i] = (pr[i] & 0xffff0000u) | (uint32_t)min(j, 0xffff);
@@ -552,41 +524,127 @@ __global__ void __launch_bounds__(32 * kBlockRouteMaxWarps) rank_map_block_kerne
   for (int t = threadIdx.x; t < L; t += blockDim.x) dst[t] = buf[t];
 }
 
-// the search route's chunks: C = ceil(L / kBlockMaxLen) of Lc = ceil(L / C)
-__host__ __device__ inline int search_chunks(int L) { return (L + kBlockMaxLen - 1) / kBlockMaxLen; }
-__host__ __device__ inline int search_chunk_len(int L) {
-  const int C = search_chunks(L);
-  return (L + C - 1) / C;
+// ---------------------------------------------------------------------------
+// long routes (L > kBlockMaxLen): staged, or the search trial
+// ---------------------------------------------------------------------------
+
+// C = ceil(L / kBlockMaxLen) chunks of Lc = ceil(L / C), the last shorter
+// (none empty); chunk j of segment s has the scratch slot of kChunkSlots
+// words at (s * C + j) * kChunkSlots
+__host__ __device__ inline int long_chunks(int L) { return (L - 1) / kBlockMaxLen + 1; }
+__host__ __device__ inline int long_chunk_len(int L) { return (L - 1) / long_chunks(L) + 1; }
+
+// The slot of a chunk's sorted member p (0 <= p < kChunkSlots; members past
+// the chunk are pads): member kChunkSlots - 1 goes to slot 0, member p below
+// it to its node of the perfect tree in breadth-first order: in-order node
+// q = p + 1 lies z = (trailing zeros of q) levels above the leaves, at index
+// q >> (z + 1) within its level.  The search trial keeps sorted order.
+__device__ __forceinline__ int tree_slot(int p) {
+  if (kSearchTrial) return p;
+  if (p == kChunkSlots - 1) return 0;
+  const int q = p + 1, z = __ffs(q) - 1;
+  return (1 << (kTreeLevels - 1 - z)) + (q >> (z + 1));
 }
 
-// K2, search route, first kernel: block b sorts chunk b % C of segment b / C
-// by folded key (the block sort, no positions) into the scratch row.
+// K2, long routes, first kernel: block b sorts chunk b % C of segment b / C
+// by folded key (the block sort, no positions) into scratch slot b, pads
+// (0xffffffff, which no query counts) after the chunk's members.
 template <int ITEMS>
 __global__ void __launch_bounds__(32 * kBlockRouteMaxWarps) sort_chunks_kernel(RANK_MAP_ARGS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int C = search_chunks(L), Lc = search_chunk_len(L);
+  const int C = long_chunks(L), Lc = long_chunk_len(L);
   const int64_t seg = blockIdx.x / C;
   const int start = (int)(blockIdx.x % C) * Lc;
   const int len = min(Lc, L - start);
-  const int64_t base = seg * L + start;
   const int c0 = warp * ITEMS * 32;
   const int n = min(ITEMS * 32, len - c0);
-  const float* src = x + base + c0;
+  const float* src = x + seg * L + start + c0;
   uint32_t key[ITEMS], pr[ITEMS];
   unsigned all, any;
   load_keys<ITEMS>([src](int j) { return folded_ukey(src[j]); }, n, c0, lane, key, pr, all, any);
   block_radix_sort<ITEMS, false>(key, pr, all, any, smem, len, n, c0);
-  uint32_t* dst = scratch + base + c0;
+  uint32_t* dst = scratch + (int64_t)blockIdx.x * kChunkSlots;
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     const int j = i * 32 + lane;
-    if (j < n) dst[j] = key[i];
+    if (j < n) dst[tree_slot(c0 + j)] = key[i];
+  }
+  for (int p = len + threadIdx.x; p < kChunkSlots; p += blockDim.x) dst[tree_slot(p)] = kNanKey;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// K2, staged route, second kernel: block b takes the queries of chunk b % C
+// of segment b / C (item i of thread t: query i * blockDim.x + t of the
+// chunk, so loads and stores are coalesced) and stages the segment's C
+// chunk slots in turn into two buffers of kChunkSlots words, chunk ch + 1
+// coming in by cp.async while the block searches chunk ch.  A query's count
+// in a chunk: the leaf its 14 steps down the tree reach, less 2^14, plus one
+// where slot 0 (the 16,384th member) <= key.  Two barriers a chunk: the
+// chunk in, and the buffer free for chunk ch + 2.
+__global__ void __launch_bounds__(kStagedMaxThreads, 1) staged_search_kernel(RANK_MAP_ARGS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem);  // [2][kChunkSlots]
+  const int C = long_chunks(L), Lc = long_chunk_len(L);
+  const int64_t seg = blockIdx.x / C;
+  const int start = (int)(blockIdx.x % C) * Lc;
+  const int len = min(Lc, L - start);
+  const uint32_t* slots = scratch + seg * C * kChunkSlots;
+  auto fetch = [&](int ch) {  // chunk ch into buffer ch & 1, one cp.async group
+    const uint4* src = reinterpret_cast<const uint4*>(slots + (int64_t)ch * kChunkSlots);
+    uint4* dst = reinterpret_cast<uint4*>(stage + (ch & 1) * kChunkSlots);
+    for (int v = threadIdx.x; v < kChunkSlots / 4; v += blockDim.x) cp_async16(dst + v, src + v);
+    cp_async_commit();
+  };
+  fetch(0);
+  const float* q = x + seg * L + start;
+  uint32_t key[kStagedItems];
+  int count[kStagedItems];
+#pragma unroll
+  for (int i = 0; i < kStagedItems; ++i) {
+    const int t = i * blockDim.x + threadIdx.x;
+    key[i] = t < len ? folded_ukey(q[t]) : kNanKey;
+    count[i] = 0;
+  }
+  for (int ch = 0; ch < C; ++ch) {
+    if (ch + 1 < C) fetch(ch + 1);
+    else cp_async_commit();  // an empty group: the wait below is for chunk ch
+    cp_async_wait_one();
+    __syncthreads();  // chunk ch is in, from every thread's copies
+    const uint32_t* tree = stage + (ch & 1) * kChunkSlots;
+    int node[kStagedItems];
+#pragma unroll
+    for (int i = 0; i < kStagedItems; ++i) node[i] = 1;
+#pragma unroll
+    for (int d = 0; d < kTreeLevels; ++d) {
+#pragma unroll
+      for (int i = 0; i < kStagedItems; ++i) node[i] = 2 * node[i] + (tree[node[i]] <= key[i]);
+    }
+    const uint32_t top = tree[0];
+#pragma unroll
+    for (int i = 0; i < kStagedItems; ++i) count[i] += node[i] - kChunkSlots + (top <= key[i]);
+    __syncthreads();  // every thread is past this buffer before chunk ch + 2 comes into it
+  }
+  const float* r = res + seg * L;
+  float* o = out + seg * L + start;
+#pragma unroll
+  for (int i = 0; i < kStagedItems; ++i) {
+    const int t = i * blockDim.x + threadIdx.x;
+    if (t < len) {
+      const bool nan = key[i] == kNanKey;
+      const float v = r[nan ? 0 : count[i] - 1];  // a non-NaN query counts itself
+      o[t] = nan ? nan_value() : v;
+    }
   }
 }
 
-// K2, search route, second kernel: thread t of block b takes query
-// (b % tiles) * kSearchThreads + t of segment b / tiles.
+// K2, search trial, second kernel: thread t of block b takes query
+// (b % tiles) * kSearchThreads + t of segment b / tiles and searches each
+// chunk slot (in sorted order) in device memory.
 __global__ void __launch_bounds__(kSearchThreads) search_kernel(RANK_MAP_ARGS) {
   const int tiles = (L + kSearchThreads - 1) / kSearchThreads;
   const int64_t seg = blockIdx.x / tiles;
@@ -598,10 +656,10 @@ __global__ void __launch_bounds__(kSearchThreads) search_kernel(RANK_MAP_ARGS) {
     out[base + t] = nan_value();
     return;
   }
-  const int C = search_chunks(L), Lc = search_chunk_len(L);
+  const int C = long_chunks(L), Lc = long_chunk_len(L);
   int c = 0;
   for (int ch = 0; ch < C; ++ch) {
-    const uint32_t* a = scratch + base + ch * Lc;
+    const uint32_t* a = scratch + (seg * C + ch) * kChunkSlots;
     int lo = 0, hi = min(Lc, L - ch * Lc);
     while (lo < hi) {  // upper bound: the first key above k
       const int mid = (lo + hi) >> 1;
@@ -722,33 +780,75 @@ Launch k2_plan(int64_t n_seg, int L) {
         constexpr int I = decltype(ic)::value;
         return block_plan(kBlock, (const void*)rank_map_block_kernel<I>, true, I, n_seg, L);
       });
-    default: {
-      const int Lc = search_chunk_len(L);
+    default: {  // a long route: the chunk sort first
+      const int Lc = long_chunk_len(L);
       return with_block_items(Lc, [&](auto ic) {
         constexpr int I = decltype(ic)::value;
-        return block_plan(kSearch, (const void*)sort_chunks_kernel<I>, false, I,
-                          n_seg * search_chunks(L), Lc);
+        return block_plan(k2_route(L), (const void*)sort_chunks_kernel<I>, false, I,
+                          n_seg * long_chunks(L), Lc);
       });
     }
   }
 }
 
-cudaError_t launch(const Launch& l, const float* x, const float* res, float* out,
-                   uint32_t* scratch, int64_t n_seg, int L, cudaStream_t stream) {
+// the second kernel of a long route: a block a (segment, chunk of queries)
+// of kStagedItems queries a thread, or the search trial's thread a query
+Launch k2_search_plan(int64_t n_seg, int L) {
+  Launch l;
+  l.route = k2_route(L);
+  if (l.route == kStaged) {
+    const int Lc = long_chunk_len(L);
+    l.kernel = (const void*)staged_search_kernel;
+    l.threads = ((Lc + kStagedItems - 1) / kStagedItems + 31) / 32 * 32;
+    l.items = kStagedItems;
+    l.smem = 2 * (size_t)kChunkSlots * 4;
+    l.blocks = n_seg * long_chunks(L);
+  } else {
+    l.kernel = (const void*)search_kernel;
+    l.threads = kSearchThreads;
+    l.items = 1;
+    l.smem = 0;
+    l.blocks = n_seg * ((L + kSearchThreads - 1) / kSearchThreads);
+  }
+  return l;
+}
+
+// 32-bit words of scratch a segment takes: the chunk slots of a long route
+int64_t scratch_words(int L) {
+  return long_route(k2_route(L)) ? (int64_t)long_chunks(L) * kChunkSlots : 0;
+}
+
+cudaError_t launch_one(const Launch& l, void** args, cudaStream_t stream) {
   if (l.blocks > 0x7fffffff) return cudaErrorInvalidValue;
   if (l.smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
     if (err != cudaSuccess) return err;
   }
+  return cudaLaunchKernel(l.kernel, dim3((unsigned)l.blocks), dim3(l.threads), args, l.smem, stream);
+}
+
+cudaError_t launch(const Launch& l, const float* x, const float* res, float* out,
+                   uint32_t* scratch, int64_t n_seg, int L, cudaStream_t stream) {
   void* args[] = {&x, &res, &out, &scratch, &n_seg, &L};
-  cudaError_t err =
-      cudaLaunchKernel(l.kernel, dim3((unsigned)l.blocks), dim3(l.threads), args, l.smem, stream);
-  if (err != cudaSuccess || l.route != kSearch) return err;
-  const int64_t blocks = n_seg * ((L + kSearchThreads - 1) / kSearchThreads);
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  return cudaLaunchKernel((const void*)search_kernel, dim3((unsigned)blocks), dim3(kSearchThreads),
-                          args, 0, stream);
+  const cudaError_t err = launch_one(l, args, stream);
+  if (err != cudaSuccess || !long_route(l.route)) return err;
+  return launch_one(k2_search_plan(n_seg, L), args, stream);
+}
+
+// res[0..3]: threads a block, items, shared bytes and resident blocks an SM
+// of launch l
+cudaError_t geometry(const Launch& l, int* res) {
+  cudaError_t err = cudaSuccess;
+  if (l.smem > 48 * 1024)
+    err = cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kernel, l.threads, l.smem);
+  if (err != cudaSuccess) return err;
+  const int vals[4] = {l.threads, l.items, (int)l.smem, blocks};
+  for (int i = 0; i < 4; ++i) res[i] = vals[i];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -763,40 +863,42 @@ int sdt_count_sort_segments(const float* x, float* out, int64_t n_seg, int L, vo
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// K2: the rank-map of each length-L segment; scratch holds n_seg * L
-// 32-bit words where sdt_rank_map_route(2, L) is 3 (the search route) and
-// may be null otherwise.
+// K2: the rank-map of each length-L segment; scratch holds n_seg *
+// sdt_rank_map_scratch_words(L) 32-bit words (none, and may be null, below
+// the long routes).
 int sdt_rank_map_segments(const float* xq, const float* res, float* out, uint32_t* scratch,
                           int64_t n_seg, int L, void* stream) {
   if (n_seg <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
-  if (k2_route(L) == kSearch && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (scratch_words(L) > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   const cudaError_t err = launch(k2_plan(n_seg, L), xq, res, out, scratch, n_seg, L,
                                  (cudaStream_t)stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// 32-bit words of scratch a segment of length L takes in K2 (-1 for L <= 0).
+int64_t sdt_rank_map_scratch_words(int L) { return L <= 0 ? -1 : scratch_words(L); }
+
 // The route kernel (1: K1, 2: K2) takes for length L: 0 packed, 1 warp,
-// 2 block, 3 search; -1 for a length it does not take.
+// 2 block, 3 staged, 4 search (the trial build); -1 for a length it does
+// not take.
 int sdt_rank_map_route(int kernel, int L) {
   if (L <= 0 || (kernel == 1 && L > kK1MaxLen) || (kernel != 1 && kernel != 2)) return -1;
   return kernel == 1 ? k1_route(L) : k2_route(L);
 }
 
 // The launch of kernel (1: K1, 2: K2) at length L, launching nothing: res
-// gets the route, threads a block, keys a lane (elements a thread on the
-// packed route), shared bytes a block and resident blocks an SM.
+// gets the route, then threads a block, keys a lane (elements a thread on
+// the packed route, queries a thread on the staged route's second kernel),
+// shared bytes a block and resident blocks an SM of the first kernel, then
+// the same four of a long route's second kernel (zeros on the other routes).
 int sdt_rank_map_geometry(int kernel, int L, int* res) {
   if (sdt_rank_map_route(kernel, L) < 0) return (int)cudaErrorInvalidValue;
   const Launch l = kernel == 1 ? k1_plan(1, L) : k2_plan(1, L);
-  cudaError_t err = cudaSuccess;
-  if (l.smem > 48 * 1024)
-    err = cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kernel, l.threads, l.smem);
+  int vals[9] = {l.route};
+  cudaError_t err = geometry(l, vals + 1);
+  if (err == cudaSuccess && long_route(l.route)) err = geometry(k2_search_plan(1, L), vals + 5);
   if (err != cudaSuccess) return (int)err;
-  const int vals[5] = {l.route, l.threads, l.items, (int)l.smem, blocks};
-  for (int i = 0; i < 5; ++i) res[i] = vals[i];
+  for (int i = 0; i < 9; ++i) res[i] = vals[i];
   return 0;
 }
 

@@ -21,10 +21,14 @@ launch, as :func:`route` does: ``"packed"`` (whole segments packed end to
 end, four keys a thread, ``L <= SHORT_MAX[kernel]``), ``"warp"`` (a warp a
 segment: the radix sort of ``csrc/radix_sort.cuh``, and for K2 a run-end
 fill, ``L <= 1,024``), ``"block"`` (a block a segment, K2 up to 16,384)
-and ``"search"`` (K2 above: chunks sorted into a device-memory scratch
-row, then a search a query).  ``LAUNCHES`` (shared by every kernel of the
-package) counts kernel launches by name, and only kernel launches: one a
-wrapper call, whatever the route.
+and ``"staged"`` (K2 above: chunks of at most 16,384 sorted into a
+device-memory scratch row as search trees, then a block a chunk of queries
+that stages each sorted chunk in shared memory and searches it there; any
+``L``).  The build with ``SDT_K2_SEARCH_ROUTE=1`` takes ``"search"`` there
+instead (the same chunk sort, then a search of device memory a query), for
+the trials alone.  ``LAUNCHES`` (shared by every kernel of the package)
+counts kernel launches by name, and only kernel launches: one a wrapper
+call, whatever the route.
 """
 
 from __future__ import annotations
@@ -47,17 +51,20 @@ __all__ = [
     "rank_map_segments",
     "rank_map_segments_plain",
     "route",
+    "long_chunks",
 ]
 
 # longest segment K1 takes; callers sort longer ones with the row sort K9
 COUNT_SORT_MAX_LEN = 256
 
-# the kernel's routes by length (csrc/rank_map.cu), in its numbering
-ROUTES = ("packed", "warp", "block", "search")
+# the kernel's routes by length (csrc/rank_map.cu), in its numbering;
+# "search" only in the trial build SDT_K2_SEARCH_ROUTE=1
+ROUTES = ("packed", "warp", "block", "staged", "search")
 # longest L of each kernel's packed route
 SHORT_MAX = {"count_sort_segments": 64, "rank_map_segments": 256}
 WARP_MAX = 1024  # longest L of the warp route
-BLOCK_MAX = 16384  # longest L of K2's block route
+BLOCK_MAX = 16384  # longest L of K2's block route, and of a chunk above it
+CHUNK_SLOTS = 16384  # 32-bit words of scratch a chunk of a long route takes
 
 _KERNEL_ID = {"count_sort_segments": 1, "rank_map_segments": 2}
 
@@ -73,7 +80,16 @@ def route(kernel: str, L: int) -> str:
         return "packed"
     if L <= WARP_MAX or kernel == "count_sort_segments":
         return "warp"
-    return "block" if L <= BLOCK_MAX else "search"
+    return "block" if L <= BLOCK_MAX else "staged"
+
+
+def long_chunks(L: int) -> tuple[int, int]:
+    """``(C, Lc)``: the chunks K2 cuts a segment of length ``L >
+    BLOCK_MAX`` into on its staged route, ``C = ceil(L / BLOCK_MAX)`` of
+    ``Lc = ceil(L / C)`` (the last shorter, none empty), as
+    ``long_chunks`` / ``long_chunk_len`` of ``csrc/rank_map.cu``."""
+    C = -(-L // BLOCK_MAX)
+    return C, -(-L // C)
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -87,6 +103,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sdt_rank_map_route.restype = i32
     lib.sdt_rank_map_geometry.argtypes = [i32, i32, vp]
     lib.sdt_rank_map_geometry.restype = i32
+    lib.sdt_rank_map_scratch_words.argtypes = [i32]
+    lib.sdt_rank_map_scratch_words.restype = i64
     lib.sdt_error_string.argtypes = [i32]
     lib.sdt_error_string.restype = ctypes.c_char_p
     return lib
@@ -105,15 +123,26 @@ def launch_geometry(kernel: str, L: int, lib: ctypes.CDLL | None = None) -> dict
     """The launch the kernel ``kernel`` (or another build of it, ``lib``)
     takes for length ``L`` on the current card, launching nothing: its
     route, threads a block, keys a lane (or a thread, on the packed
-    route), shared bytes a block and resident blocks an SM (of the first
-    kernel, on the search route).  Needs the card."""
+    route), shared bytes a block and resident blocks an SM of its first
+    kernel, and under ``"second"`` the same four of a long route's second
+    kernel (the staged search: queries a thread as its items), else None.
+    Needs the card."""
     lib = lib or _lib()
-    res = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    res = (ctypes.c_int * (2 * len(GEOMETRY_KEYS) - 1))()
     rc = lib.sdt_rank_map_geometry(_KERNEL_ID[kernel], L, ctypes.addressof(res))
     check_launch(lib, rc, kernel)
     geo = dict(zip(GEOMETRY_KEYS, res))
     geo["route"] = ROUTES[geo["route"]]
+    second = dict(zip(GEOMETRY_KEYS[1:], res[len(GEOMETRY_KEYS):]))
+    geo["second"] = second if second["threads"] else None
     return geo
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_words(lib: ctypes.CDLL, L: int) -> int:
+    """32-bit words of scratch a segment of length ``L`` takes in the build
+    ``lib`` (0 below the long routes); asked once a length."""
+    return lib.sdt_rank_map_scratch_words(L)
 
 
 def _segments(x: torch.Tensor, L: int) -> int:
@@ -207,14 +236,15 @@ def rank_map_segments(xq: torch.Tensor, res: torch.Tensor, L: int) -> torch.Tens
 
 def launch_rank_map(lib: ctypes.CDLL, xq: torch.Tensor, res: torch.Tensor, L: int) -> torch.Tensor:
     """One launch of a build of K2 on checked CUDA float32 segments (at
-    least one), with the device-memory scratch row of the search route
-    where the build takes it for this ``L``: the mapped values.  Counts
-    nothing."""
+    least one), with the device-memory scratch of a long route (its sorted
+    chunks) where the build takes one for this ``L``: the mapped values.
+    Counts nothing."""
     n_seg = _segments(xq, L)
     out = torch.empty_like(xq)
     scratch = None
-    if ROUTES[lib.sdt_rank_map_route(2, L)] == "search":
-        scratch = torch.empty(xq.shape, dtype=torch.int32, device=xq.device)
+    words = _scratch_words(lib, L)
+    if words:
+        scratch = torch.empty(n_seg * words, dtype=torch.int32, device=xq.device)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         rc = lib.sdt_rank_map_segments(

@@ -195,8 +195,10 @@ def _trend_fit(model, index_fit, X, y):
 
 
 def _trend_transform(model, state, index_fit, X, index, direction):
+    if direction == "transform":  # (C, T, F) -> (C, F, T) and back
+        return _single(torch.movedim(_t.trend_transform(state, torch.movedim(X, 1, -1)), -1, 1))
     line = torch.movedim(_t.trend_line(state, X.shape[1], X.dtype), -1, 1)  # (C, T, F)
-    return _single(X - line) if direction == "transform" else _single(X + line)
+    return _single(X + line)
 
 
 register(
@@ -312,8 +314,8 @@ def _ta_fit(model, index_fit, X, y):
     fit_intercept, positive = _ta_trend_opts(model)
     x_tr = _t.trend_fit_opts(x, fit_intercept, positive)
     y_tr = _t.trend_fit_opts(y, fit_intercept, positive)
-    x_det = x - _t.trend_line(x_tr, x.shape[1], x.dtype)
-    y_det = y - _t.trend_line(y_tr, y.shape[1], y.dtype)
+    x_det = _t.trend_transform(x_tr, x)
+    y_det = _t.trend_transform(y_tr, y)
     inner = batched_fit(model.qm_estimator, index_fit, x_det[..., None], y_det)
     return {"inner": inner, "x_mean": x.mean(dim=1), "y_mean": y.mean(dim=1)}
 
@@ -323,7 +325,7 @@ def _ta_predict(model, state, index_fit, X, index):
     fit_intercept, positive = _ta_trend_opts(model)
     tr = _t.trend_fit_opts(x, fit_intercept, positive)
     line = _t.trend_line(tr, x.shape[1], x.dtype)
-    x_det = x - line
+    x_det = _t.trend_transform(tr, x)
     y_hat = batched_predict(model.qm_estimator, state["inner"], index_fit, x_det[..., None], index)
     delta = (x.mean(dim=1) - state["x_mean"]) + state["y_mean"]
     trendline = line - line.mean(dim=1, keepdim=True)

@@ -182,6 +182,15 @@ def _trend_line_flat(slope, intercept, groups: PaddedGroups, dtype):
     return line.reshape(*slope.shape[:-1], G * L)
 
 
+def _detrend_flat(xg_flat, slope, intercept, groups: PaddedGroups):
+    """Flat padded group rows (..., G*L) less each group's trendline, the
+    intercept first (as :func:`~.trend.trend_transform`)."""
+    G, L = groups.indices.shape
+    t = torch.arange(L, dtype=xg_flat.dtype, device=xg_flat.device)
+    xg = xg_flat.reshape(*slope.shape[:-1], G, L)
+    return ((xg - intercept[..., None]) - slope[..., None] * t).reshape(xg_flat.shape)
+
+
 def cunnane_fit_padded(
     xg_flat, groups: PaddedGroups, *, alpha: float = 0.4, beta: float = 0.4, detrend: bool = False
 ) -> GroupedCdf:
@@ -190,7 +199,7 @@ def cunnane_fit_padded(
     lead = xg_flat.shape[:-1]
     if detrend:
         slope, intercept = _masked_trend(xg_flat, groups)
-        xg_flat = xg_flat - _trend_line_flat(slope, intercept, groups, dtype)
+        xg_flat = _detrend_flat(xg_flat, slope, intercept, groups)
     else:
         slope = torch.zeros((*lead, groups.n_groups), dtype=dtype, device=xg_flat.device)
         intercept = torch.zeros_like(slope)
@@ -475,7 +484,7 @@ def grouped_qm_transform(
     xg_raw = gather_groups(x, groups, fill=0.0)
     if detrend:
         slope, intercept = _masked_trend(xg_raw, groups)
-        xg = xg_raw - _trend_line_flat(slope, intercept, groups, dtype)
+        xg = _detrend_flat(xg_raw, slope, intercept, groups)
     else:
         xg = xg_raw
     G, L = groups.indices.shape

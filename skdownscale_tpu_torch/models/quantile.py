@@ -45,7 +45,7 @@ from ..ops.interp import interp_rows
 from ..ops.regression import ols_1d
 from .base import SingleCellEstimator, SingleCellTransformer, asarray_2d
 from .grouped import _rank_bracket_row, apply_ranked_rows
-from .trend import LinearTrendTransformer, TrendState, trend_fit, trend_line
+from .trend import LinearTrendTransformer, TrendState, trend_fit, trend_line, trend_transform
 
 __all__ = [
     "CunnaneTransformer",
@@ -141,7 +141,7 @@ def qm_fit(x, *, detrend: bool = False, alpha: float = 0.4, beta: float = 0.4) -
     """``QuantileMapper.fit`` (``quantile.py:81-107``) on (..., n) series."""
     if detrend:
         tr = trend_fit(x)
-        x_to_cdf = x - trend_line(tr, x.shape[-1], x.dtype)
+        x_to_cdf = trend_transform(tr, x)
     else:
         zeros = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
         tr = TrendState(zeros, zeros.clone())
@@ -202,7 +202,7 @@ def qm_transform(
     row.  ``alpha``/``beta`` must be the pair the state was fit with."""
     if detrend:
         tr_new = trend_fit(x)
-        x_to_cdf = x - trend_line(tr_new, x.shape[-1], x.dtype)
+        x_to_cdf = trend_transform(tr_new, x)
     else:
         x_to_cdf = x
     n = x.shape[-1]

@@ -72,7 +72,14 @@ def trend_line(state: TrendState, n: int, dtype=None):
 
 
 def trend_transform(state: TrendState, x):
-    return x - trend_line(state, x.shape[-1], x.dtype)
+    """``x`` less its fitted trendline, as ``(x - intercept) - slope * t``.
+    In float32 the trendline itself rounds at the data's magnitude (half a
+    spacing, about 1.5e-5 K at 283 K), which reorders near-tied detrended
+    values against the float64 path; the intercept first leaves only the
+    small slope term to round (exactly, where the intercept is within a
+    factor of two of the data)."""
+    t = torch.arange(x.shape[-1], dtype=x.dtype, device=x.device)
+    return (x - state.intercept[..., None]) - state.slope[..., None] * t
 
 
 def trend_inverse(state: TrendState, x):
@@ -120,7 +127,10 @@ class LinearTrendTransformer(SingleCellTransformer):
     def transform(self, X):
         self._check_is_fitted()
         X = self._validate_data(X, reset=False)
-        return X - self.trendline(X)
+        # the intercept first, as trend_transform
+        slope, intercept = (self._cell_tensor(a) for a in self._state)
+        t = torch.arange(len(asarray_2d(X)), dtype=slope.dtype, device=slope.device)
+        return (X - intercept.cpu().numpy()) - (t[:, None] * slope).cpu().numpy()
 
     def inverse_transform(self, X):
         self._check_is_fitted()

@@ -79,9 +79,8 @@ def test_kernels_bitwise_vs_plain(cuda_device, rng, B, G, L):
 def test_kernels_bitwise_vs_plain_at_every_route_and_any_length(cuda_device, rng, B, G, L):
     """K1 and K2 on each side of every route edge of csrc/rank_map.cu, and
     K2 with one daily series of 1950-01-01 to 2100-12-31 a row (L = 55,152,
-    the search route; the kernel raised there before it had one): bitwise
-    equal to the plain versions, one launch a call, the build's route the
-    one kernels/rank_map.route names."""
+    the staged route): bitwise equal to the plain versions, one launch a
+    call, the build's route the one kernels/rank_map.route names."""
     x = torch.from_numpy(_adversarial(rng, B * G, L).reshape(B, G * L)).to(cuda_device)
     res = torch.from_numpy(
         np.sort(rng.normal(0, 1, (B * G, L)).astype(np.float32), axis=1).reshape(B, G * L)
@@ -97,6 +96,51 @@ def test_kernels_bitwise_vs_plain_at_every_route_and_any_length(cuda_device, rng
         torch.cuda.synchronize()
         assert K.LAUNCHES[name] == n0 + 1
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+def _long_adversarial(rng, rows, L):
+    """_adversarial rows above 16,384 with, in every row but an all-NaN row
+    0 and a one-key row 1 (where there are more than two), a tie run across
+    each chunk boundary of K2's staged route with NaN among it, and -0 and
+    +0 in different chunks."""
+    x = _adversarial(rng, rows, L)
+    _, Lc = K.long_chunks(L)
+    first = 0
+    if rows > 2:
+        x[0], x[1], first = np.nan, 7.0, 2
+    for r in range(first, rows):
+        for b in range(Lc, L, Lc):
+            x[r, b - 40 : b + 40] = np.float32(12.5 + r)
+            x[r, [b - 3, b + 5]] = np.nan
+        x[r, rng.choice(Lc, 6, replace=False)] = np.float32(-0.0)
+        x[r, Lc + rng.choice(L - Lc, 6, replace=False)] = np.float32(0.0)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,L",
+    [(16, 16_385), (8, 23_741), (8, 32_768), (8, 32_769), (8, 49_152), (8, 49_153), (16, 55_152),
+     (1, 2**20)],
+)
+def test_k2_staged_route_bitwise_at_every_chunk_edge(cuda_device, rng, B, L):
+    """K2's staged route (L > 16,384) one past the block route, at each
+    chunk-count edge, at 1950-2014 and 1950-2100 daily lengths and on one
+    row of 2^20 (64 chunks of exactly 16,384): tie runs across chunk
+    boundaries with NaN among them, one key repeated across a row, -0 and
+    +0 in different chunks, an all-NaN row; bitwise equal to the plain
+    version, one launch a call, both kernels of the route reported."""
+    x = torch.from_numpy(_long_adversarial(rng, B, L)).to(cuda_device)
+    res = torch.from_numpy(np.sort(rng.normal(0, 1, (B, L)).astype(np.float32), axis=1)).to(cuda_device)
+    geo = K.launch_geometry("rank_map_segments", L)
+    assert geo["route"] == K.route("rank_map_segments", L) == "staged"
+    assert geo["second"] is not None and geo["second"]["blocks_per_sm"] >= 1
+    n0 = K.LAUNCHES["rank_map_segments"]
+    got = K.rank_map_segments(x, res, L)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rank_map_segments"] == n0 + 1
+    want = K.rank_map_segments_plain(x, res, L)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

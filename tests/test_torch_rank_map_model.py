@@ -10,23 +10,30 @@ The model follows the kernel's four routes, chosen by ``L`` as
   stride of ``round_up(L, 4)`` with pad slots that never count; K2
   counts ``#{q_s <= q_t}`` and takes the staged ``res[c - 1]``; K1 writes
   its key at its run end ``#{k_s <= k_t} - 1`` into a row preset to the
-  largest key and each slot walks forward to the next set slot (the stable
-  rank of the ``SDT_K1_STABLE`` build too);
+  largest key and each slot walks forward to the next set slot;
 * warp (L <= 1,024) and block (L <= 16,384): the folded keys (-0 onto +0,
   every NaN onto 0xffffffff) sorted stably with their positions (the
   radix sort itself is modelled in ``tests/test_torch_sort.py``), each
   slot's run end item by item as the kernel finds it (the highest lane
-  holding its key, or the reverse min-scan of the SDT_RANK_RUN_END=0
-  build), carried from the last item to the first and, on the block route,
-  from the later warps' chunks through the first key and first run end of
-  each chunk; then ``out[pos] = res[j]``;
-* search (L > 16,384): chunks of at most 16,384 sorted, the count a sum of
-  upper bounds.
+  holding its key), carried from the last item to the first and, on the
+  block route, from the later warps' chunks through the first key and
+  first run end of each chunk; then ``out[pos] = res[j]``;
+* staged (L > 16,384): C chunks of at most 16,384 sorted, each into a slot
+  of 16,384 words laid out as a search tree in breadth-first order (slot 0
+  the 16,384th member, pads 0xffffffff); a block a chunk of queries, 16 a
+  thread, walks the tree 14 levels a chunk, and a query's count is the sum
+  of the leaves it reaches less 2^14, plus one where slot 0 <= key;
+* search (the ``SDT_K2_SEARCH_ROUTE=1`` trial build, L > 16,384): the same
+  chunks sorted, the count a sum of upper bounds.
 
 Inputs hold NaN (the payloads 0x7fffffff and 0xffffffff too), +-0, +-inf,
 heavy ties, all-NaN and all-equal segments, and segment counts that leave
-the last block part full.  Ties taking the run start, -0 not folded onto
-+0, NaN counted as a member, and a segment reading its neighbour's last key
+the last block part full; above 16,384 also tie runs across each chunk
+boundary with NaN among them, and -0 and +0 in different chunks.  Ties
+taking the run start, -0 not folded onto +0, NaN counted as a member, a
+segment reading its neighbour's last key, and on the staged route a strict
+``<`` in one foreign chunk, a run end that stops at the query's own chunk
+boundary, -0 left unfolded in one chunk and the 16,384th member left out
 must each make the model disagree.  Numpy and torch only, no JAX program.
 """
 
@@ -42,6 +49,8 @@ NAN_KEY = np.uint32(0xFFFFFFFF)
 I32_MAX = np.int32(2**31 - 1)
 PACKED_THREADS = 256
 PACKED_ITEMS = 4  # keys a thread counts
+TREE_LEVELS = 14  # levels of a chunk's search tree on the staged route
+STAGED_ITEMS = 16  # queries a thread on the staged route
 
 
 # ----------------------------------------------------------------------
@@ -135,8 +144,8 @@ def packed_k2(xq, res, L, mutation=None):
     return out
 
 
-def packed_k1(x, L, stable=False, mutation=None):
-    """K1's packed route: run end and forward walk (or the stable rank)."""
+def packed_k1(x, L, mutation=None):
+    """K1's packed route: run end and forward walk."""
     out = np.empty_like(x)
     blocks, P, Lp = _packed_blocks(x.size // L, L)
     for s0, segs in blocks:
@@ -147,15 +156,10 @@ def packed_k1(x, L, stable=False, mutation=None):
         keys[s * Lp + tl] = kt
         w = keys[win]
         srt = np.full(P * Lp, I32_MAX, np.int32)  # preset: unset
-        if stable:
-            place = np.arange(Lp)[None, :]
-            c = ((w < kt[:, None]) | ((w == kt[:, None]) & (place < tl[:, None]))).sum(1)
-            srt[s * Lp + c] = kt
-        else:
-            c = (w <= kt[:, None]).sum(1) - np.where(kt == I32_MAX, Lp - L, 0)
-            if mutation == "run_start":
-                c = (w < kt[:, None]).sum(1) + 1
-            srt[s * Lp + c - 1] = kt  # tied keys write the same bits
+        c = (w <= kt[:, None]).sum(1) - np.where(kt == I32_MAX, Lp - L, 0)
+        if mutation == "run_start":
+            c = (w < kt[:, None]).sum(1) + 1
+        srt[s * Lp + c - 1] = kt  # tied keys write the same bits
         rows = srt.reshape(P, Lp)[:segs, :L]
         # each slot walks to the next slot that is set (the last always is)
         is_set = rows != I32_MAX
@@ -167,28 +171,16 @@ def packed_k1(x, L, stable=False, mutation=None):
 
 
 # ----------------------------------------------------------------------
-# warp and block routes: sort with positions, run-end scan, fill
+# warp and block routes: sort with positions, run ends, fill
 # ----------------------------------------------------------------------
 
 
 def _run_end_match(key, after, more, base, carry):
-    """run_end_match of one item (the default): each lane's highest peer
-    (the lanes holding its key), or the carry where the run goes on past
-    lane 31 into the next slot of the row (``more``)."""
+    """run_end_match of one item: each lane's highest peer (the lanes
+    holding its key), or the carry where the run goes on past lane 31 into
+    the next slot of the row (``more``)."""
     hi = np.array([np.nonzero(key == k)[0].max() for k in key])
     return np.where((hi == LANES - 1) & more & (key == after), carry, base + hi)
-
-
-def _run_end(key, after, m, last, carry):
-    """run_end of one item by the reverse min-scan (SDT_RANK_RUN_END=0):
-    key, m (32,), the key after lane 31, the carry."""
-    nxt = np.append(key[1:], after)
-    j = np.where((m >= last) | (key != nxt), m, BIG)
-    lane = np.arange(LANES)
-    for d in (1, 2, 4, 8, 16):
-        o = np.append(j[d:], np.full(d, BIG))  # __shfl_down_sync
-        j = np.where(lane + d < LANES, np.minimum(j, o), j)
-    return np.minimum(j, carry)
 
 
 def _sorted(xq, mutation):
@@ -211,14 +203,12 @@ def _run_starts(keys):
     return np.maximum.accumulate(np.where(start, m, -1))
 
 
-def _item_run_end(form, key, after, m, L, carry):
-    """One item's run ends by the kernel's form (``"match"`` or ``"scan"``)."""
-    if form == "match":
-        return _run_end_match(key, after, m[0] + LANES < L, m[0], carry)
-    return _run_end(key, after, m, L - 1, carry)
+def _item_run_end(key, after, m, L, carry):
+    """One item's run ends."""
+    return _run_end_match(key, after, m[0] + LANES < L, m[0], carry)
 
 
-def warp_k2(xq, res, L, mutation=None, form="match"):
+def warp_k2(xq, res, L, mutation=None):
     """K2's warp route on one segment."""
     keys, pos = _sorted(xq, mutation)
     if mutation == "run_start":
@@ -233,7 +223,7 @@ def warp_k2(xq, res, L, mutation=None, form="match"):
         if i * LANES >= L:
             continue
         m = i * LANES + np.arange(LANES)
-        ji = _item_run_end(form, reg[i], after, m, L, carry)
+        ji = _item_run_end(reg[i], after, m, L, carry)
         carry, after = ji[0], reg[i][0]
         j[m] = ji
     return _fill(xq, res, keys, pos, j[:L], L)
@@ -244,7 +234,7 @@ def _block_shape(L):
     return items, max(8, -(-L // (items * LANES)))
 
 
-def block_k2(xq, res, L, mutation=None, form="match"):
+def block_k2(xq, res, L, mutation=None):
     """K2's block route on one segment: each warp's chunk scanned alone,
     then the later chunks' least run end where a chunk has none."""
     keys, pos = _sorted(xq, mutation)
@@ -266,7 +256,7 @@ def block_k2(xq, res, L, mutation=None, form="match"):
             if i * LANES >= n:
                 continue
             m = c0 + i * LANES + np.arange(LANES)
-            ji = _item_run_end(form, reg[w, i], after, m, L, carry)
+            ji = _item_run_end(reg[w, i], after, m, L, carry)
             carry, after = ji[0], reg[w, i][0]
             j16[m] = np.minimum(ji, 0xFFFF)
         if n > 0:
@@ -282,36 +272,113 @@ def block_k2(xq, res, L, mutation=None, form="match"):
     return _fill(xq, res, keys, pos, j, L)
 
 
-def search_k2(xq, res, L, mutation=None, form=None):
-    """K2's search route on one segment: chunks of at most 16,384 sorted,
-    each query's count a sum of upper bounds."""
+def tree_slot(p):
+    """csrc/rank_map.cu tree_slot: the slot of a chunk's sorted member p
+    (< 16,384): member 16,383 to slot 0, member p below it to in-order node
+    q = p + 1 of the perfect tree in breadth-first order, z = (trailing
+    zeros of q) levels above the leaves, index q >> (z + 1) in its level."""
+    q = np.asarray(p, np.int64) + 1
+    z = np.minimum(np.frexp((q & -q).astype(np.float64))[1] - 1, TREE_LEVELS - 1)
+    return np.where(q == K.CHUNK_SLOTS, 0, (1 << (TREE_LEVELS - 1 - z)) + (q >> (z + 1)))
+
+
+TREE_SLOT = tree_slot(np.arange(K.CHUNK_SLOTS))
+
+
+def chunk_slot(members):
+    """A chunk's scratch slot as the sort kernel writes it: the sorted
+    members, then pads (0xffffffff), each at its tree slot."""
+    srt = np.full(K.CHUNK_SLOTS, NAN_KEY, np.uint32)
+    srt[: members.size] = np.sort(members)
+    slot = np.empty_like(srt)
+    slot[TREE_SLOT] = srt
+    return slot
+
+
+def tree_count(slot, k, strict=False, top=True):
+    """Each query's count in a staged chunk: 14 steps down the tree (node
+    i's children 2i and 2i + 1), the leaf less 2^14, plus one where slot 0
+    (the 16,384th member) <= key (``strict``: ``<``, a mutant; ``top=False``
+    leaves slot 0 out, a mutant)."""
+    le = np.less if strict else np.less_equal
+    node = np.ones(k.size, np.intp)
+    v = np.empty(k.size, np.uint32)
+    b = np.empty(k.size, bool)
+    for _ in range(TREE_LEVELS):
+        np.take(slot, node, out=v)
+        le(v, k, out=b)
+        node <<= 1
+        node += b
+    return node - K.CHUNK_SLOTS + (le(slot[0], k) if top else 0)
+
+
+def staged_blocks(L):
+    """The staged route's second kernel on one segment: (start, len) of each
+    block's chunk of queries, and its threads (a multiple of 32, 16 queries
+    a thread)."""
+    C, Lc = K.long_chunks(L)
+    threads = -(-(-(-Lc // STAGED_ITEMS)) // LANES) * LANES
+    return [(j * Lc, min(Lc, L - j * Lc)) for j in range(C)], threads
+
+
+def staged_k2(xq, res, L, mutation=None):
+    """K2's staged route on one segment: chunk j's slot searched by every
+    query of the segment (each block walks all C slots), the counts summed,
+    out = res[c - 1].  Mutants: "foreign_strict" (chunk 0 counted with
+    ``<`` by the queries of the other chunks), "chunk_run_end" (the chunks
+    after a query's own counted with ``<``: its run end stops at its
+    chunk's boundary), "zero_one_chunk" (chunk 1's loads, members and
+    queries, keep -0 below +0), "no_top" (slot 0 left out)."""
+    C, Lc = K.long_chunks(L)
     k = _folded(xq, mutation)
-    C = -(-L // K.BLOCK_MAX)
-    Lc = -(-L // C)
+    if mutation == "zero_one_chunk":
+        k[Lc : 2 * Lc] = _folded(xq[Lc : 2 * Lc], "zero")
+    own = np.arange(L) // Lc  # the chunk, and block, of each query
+    c = np.zeros(L, np.int64)
+    for j in range(C):
+        slot = chunk_slot(k[j * Lc : (j + 1) * Lc])
+        strict = {"run_start": True, "foreign_strict": (own != 0) & (j == 0), "chunk_run_end": j > own}
+        s = strict.get(mutation, False)
+        if np.all(s):
+            c += tree_count(slot, k, strict=True)
+        elif not np.any(s):
+            c += tree_count(slot, k, top=mutation != "no_top")
+        else:
+            c += np.where(s, tree_count(slot, k, strict=True), tree_count(slot, k))
+    if mutation == "run_start":
+        c += 1
+    return np.where(k == NAN_KEY, np.float32(np.nan), res[np.clip(c - 1, 0, L - 1)])
+
+
+def search_k2(xq, res, L, mutation=None):
+    """The search trial (SDT_K2_SEARCH_ROUTE=1) on one segment: the same
+    chunks sorted, each query's count a sum of upper bounds."""
+    k = _folded(xq, mutation)
+    C, Lc = K.long_chunks(L)
     c = sum(np.searchsorted(np.sort(k[a : a + Lc]), k, side="right") for a in range(0, L, Lc))
     if mutation == "run_start":
         c = sum(np.searchsorted(np.sort(k[a : a + Lc]), k, side="left") for a in range(0, L, Lc)) + 1
     return np.where(k == NAN_KEY, np.float32(np.nan), res[np.clip(c - 1, 0, L - 1)])
 
 
-def model_k2(xq, res, L, mutation=None, search_min=None, form="match"):
-    """K2 on (B, G*L) by the route the launcher takes (``search_min``: the
-    SDT_K2_SEARCH_MIN build; ``form``: the run ends' form)."""
+def model_k2(xq, res, L, mutation=None, search=False):
+    """K2 on (B, G*L) by the route the launcher takes (``search``: the
+    SDT_K2_SEARCH_ROUTE=1 build)."""
     flat, rflat = xq.reshape(-1), res.reshape(-1)
     rt = K.route("rank_map_segments", L)
-    if search_min is not None and rt != "packed" and L >= search_min:
+    if search and rt == "staged":
         rt = "search"
     if rt == "packed":
         return packed_k2(flat, rflat, L, mutation).reshape(xq.shape)
-    one = {"warp": warp_k2, "block": block_k2, "search": search_k2}[rt]
-    rows = [one(flat[a : a + L], rflat[a : a + L], L, mutation, form) for a in range(0, flat.size, L)]
+    one = {"warp": warp_k2, "block": block_k2, "staged": staged_k2, "search": search_k2}[rt]
+    rows = [one(flat[a : a + L], rflat[a : a + L], L, mutation) for a in range(0, flat.size, L)]
     return np.concatenate(rows).reshape(xq.shape)
 
 
-def model_k1(x, L, stable=False, mutation=None):
+def model_k1(x, L, mutation=None):
     """K1 on (B, G*L): the packed route, or the warp route's stable sort."""
     if K.route("count_sort_segments", L) == "packed":
-        return packed_k1(x.reshape(-1), L, stable, mutation).reshape(x.shape)
+        return packed_k1(x.reshape(-1), L, mutation).reshape(x.shape)
     return _from_okeys(np.sort(_okeys(x.reshape(-1, L)), axis=1)).reshape(x.shape)
 
 
@@ -337,6 +404,35 @@ def _segments(rng, n_seg, L):
         x[2] = 7.0
         x[3] = np.where(rng.random(L) < 0.5, np.float32(0.0), np.float32(-0.0))
     return x
+
+
+def _long_segments(rng, n_seg, L, kind):
+    """float32 (n_seg, L > 16,384): Gaussian ("gauss"), or the data of
+    :func:`_segments` ("long") with, in each segment that is not all NaN or
+    all equal, a tie run of 80 across each chunk boundary of the staged
+    route with two NaN among it, and -0 and +0 each in chunk 0 and chunk 1."""
+    if kind == "gauss":
+        return rng.normal(0, 1, (n_seg, L)).astype(np.float32)
+    x = _segments(rng, n_seg, L)
+    _, Lc = K.long_chunks(L)
+    for r in range(n_seg):
+        if n_seg > 3 and r in (1, 2):
+            continue
+        for b in range(Lc, L, Lc):
+            x[r, b - 40 : b + 40] = np.float32(12.5 + r)
+            x[r, [b - 3, b + 5]] = np.nan
+        p0, p1 = rng.choice(Lc - 50, 8, replace=False), Lc + rng.choice(Lc - 50, 8, replace=False)
+        x[r, p0[:4]], x[r, p0[4:]] = np.float32(-0.0), np.float32(0.0)
+        x[r, p1[:4]], x[r, p1[4:]] = np.float32(0.0), np.float32(-0.0)
+    return x
+
+
+def _data(rng, B, G, L, kind="segments"):
+    """(B, G*L) inputs: :func:`_segments`, or :func:`_long_segments` of
+    ``kind``."""
+    if kind == "segments":
+        return _segments(rng, B * G, L).reshape(B, G * L)
+    return _long_segments(rng, B * G, L, kind).reshape(B, G * L)
 
 
 def _res(rng, n_seg, L):
@@ -378,43 +474,66 @@ def test_k2_model_matches_the_plain_version_bitwise(rng, B, G, L):
     np.testing.assert_array_equal(_bits(model_k2(x, r, L)), _bits(_plain_k2(x, r, L)))
 
 
-@pytest.mark.parametrize("L", [257, 730, 1025, 16384])
+# the staged route's lengths: one past the block route, its chunk-count
+# edges (2 chunks of 16,384 / 3 of 10,923; 4 of 12,289 past 3 of 16,384),
+# 1950-2014 and 1950-2100 daily, and one row of 65 chunks
+LONG_LENGTHS = [16385, 16386, 23741, 32768, 32769, 49153, 55152, 2**20 + 1]
+
+
+@pytest.mark.parametrize("kind", ["long", "gauss"])
+@pytest.mark.parametrize("L", LONG_LENGTHS)
+def test_k2_staged_route_matches_the_plain_version_bitwise(rng, L, kind):
+    """The staged route (chunk slots as search trees, a block a chunk of
+    queries walking every slot) on tie runs across each chunk boundary with
+    NaN among them, -0 and +0 in different chunks, the data of _segments
+    (all-NaN and all-equal segments among them), and on Gaussian data."""
+    assert K.route("rank_map_segments", L) == "staged"
+    B = 1 if L > 2**20 else 4
+    x, r = _data(rng, B, 1, L, kind), _res(rng, B, L)
+    np.testing.assert_array_equal(_bits(model_k2(x, r, L)), _bits(_plain_k2(x, r, L)))
+
+
+@pytest.mark.parametrize("L", [16385, 32769, 49152, 55152])
 def test_k2_search_trial_matches_the_plain_version_bitwise(rng, L):
-    """The SDT_K2_SEARCH_MIN=257 build: the search route at every L above
-    the packed route."""
-    x, r = _segments(rng, 4, L), _res(rng, 4, L)
-    np.testing.assert_array_equal(_bits(model_k2(x, r, L, search_min=257)), _bits(_plain_k2(x, r, L)))
+    """The SDT_K2_SEARCH_ROUTE=1 build: the search route above 16,384."""
+    x, r = _data(rng, 4, 1, L, "long"), _res(rng, 4, L)
+    np.testing.assert_array_equal(_bits(model_k2(x, r, L, search=True)), _bits(_plain_k2(x, r, L)))
 
 
-@pytest.mark.parametrize("L", [257, 730, 1024, 1025, 4000, 16384])
-def test_k2_run_ends_by_scan_match_the_plain_version_bitwise(rng, L):
-    """The SDT_RANK_RUN_END=0 build: run ends by the reverse min-scan."""
-    x, r = _segments(rng, 5, L), _res(rng, 5, L)
-    np.testing.assert_array_equal(_bits(model_k2(x, r, L, form="scan")), _bits(_plain_k2(x, r, L)))
-
-
-@pytest.mark.parametrize("stable", [False, True])
 @pytest.mark.parametrize("B,G,L", K1_SHAPES)
-def test_k1_model_matches_the_plain_version_bitwise(rng, B, G, L, stable):
+def test_k1_model_matches_the_plain_version_bitwise(rng, B, G, L):
     x = _segments(rng, B * G, L).reshape(B, G * L)
-    np.testing.assert_array_equal(_bits(model_k1(x, L, stable)), _bits(_plain_k1(x, L)))
+    np.testing.assert_array_equal(_bits(model_k1(x, L)), _bits(_plain_k1(x, L)))
+
+
+# the staged route's mutants and the shapes (B, G, L, data) each must fail
+# at: the tie runs across chunk boundaries, -0 and +0 in different chunks;
+# slot 0 holds a member only where a chunk is 16,384 long (and NaN-free)
+LONG_MUTANTS = {
+    "foreign_strict": [(2, 1, 16385, "long"), (1, 1, 55152, "long")],
+    "chunk_run_end": [(2, 1, 16385, "long"), (1, 1, 55152, "long")],
+    "zero_one_chunk": [(2, 1, 16385, "long"), (1, 1, 55152, "long")],
+    "no_top": [(1, 1, 32768, "gauss"), (1, 1, 49152, "gauss")],
+}
 
 
 @pytest.mark.parametrize(
     "kernel,mutation",
-    [("rank_map_segments", m) for m in ("run_start", "zero", "nan_member", "neighbour")]
+    [("rank_map_segments", m) for m in ("run_start", "zero", "nan_member", "neighbour", *LONG_MUTANTS)]
     + [("count_sort_segments", m) for m in ("run_start", "neighbour")],
 )
 def test_a_broken_rule_disagrees(rng, kernel, mutation):
     """Each mutant must differ from the plain version at one shape at
-    least: the packed shapes for every mutant, the radix routes for those
-    that apply there."""
-    shapes = [(41, 1, 40), (5, 1, 730), (2, 1, 1025), (2, 1, 16385)]
+    least: the packed shapes for every mutant, the radix and staged routes
+    for those that apply there, the staged route's own at long shapes."""
+    shapes = [(41, 1, 40, "segments"), (5, 1, 730, "segments"), (2, 1, 1025, "segments"),
+              (2, 1, 16385, "segments")]
     if mutation == "neighbour" or kernel == "count_sort_segments":
         shapes = shapes[:1]
+    shapes = LONG_MUTANTS.get(mutation, shapes)
     differs = []
-    for B, G, L in shapes:
-        x = _segments(rng, B * G, L).reshape(B, G * L)
+    for B, G, L, kind in shapes:
+        x = _data(rng, B, G, L, kind)
         if kernel == "rank_map_segments":
             r = _res(rng, B * G, L).reshape(B, G * L)
             got, want = model_k2(x, r, L, mutation), _plain_k2(x, r, L)
@@ -422,6 +541,24 @@ def test_a_broken_rule_disagrees(rng, kernel, mutation):
             got, want = model_k1(x, L, mutation=mutation), _plain_k1(x, L)
         differs.append(not np.array_equal(_bits(got), _bits(want)))
     assert all(differs), f"{kernel} {mutation}: agrees at {[s for s, d in zip(shapes, differs) if not d]}"
+
+
+@pytest.mark.parametrize("L", [16385, 23741, 32768, 32769, 55152, 2**20 + 1])
+def test_staged_blocks_take_each_query_once_and_a_slot_each_member_once(L):
+    """On the staged route every query of a segment is item i of thread t
+    of one block (query i * threads + t of its chunk), the threads a whole
+    number of warps (at most 1,024) of which only the last has idle items,
+    and the tree slots are a permutation of a chunk slot's 16,384 words."""
+    blocks, threads = staged_blocks(L)
+    longest = max(n for _, n in blocks)
+    assert threads % LANES == 0 and threads <= 1024
+    assert (threads - LANES) * STAGED_ITEMS < longest <= threads * STAGED_ITEMS
+    taken = np.zeros(L, np.int64)
+    for start, n in blocks:
+        t = (np.arange(STAGED_ITEMS)[:, None] * threads + np.arange(threads)[None, :]).ravel()
+        np.add.at(taken, start + t[t < n], 1)
+    assert (taken == 1).all()
+    assert np.array_equal(np.sort(TREE_SLOT), np.arange(K.CHUNK_SLOTS))
 
 
 def test_route_by_length():
@@ -432,7 +569,10 @@ def test_route_by_length():
           (1, 40, 65, 240, 256, 257, 730, 1024, 1025, 16384, 16385, 55152, 2**20)}
     assert k2 == {1: "packed", 40: "packed", 65: "packed", 240: "packed", 256: "packed",
                   257: "warp", 730: "warp", 1024: "warp", 1025: "block", 16384: "block",
-                  16385: "search", 55152: "search", 2**20: "search"}
+                  16385: "staged", 55152: "staged", 2**20: "staged"}
+    chunks = {L: K.long_chunks(L) for L in (16385, 32768, 32769, 49152, 49153, 55152, 2**20)}
+    assert chunks == {16385: (2, 8193), 32768: (2, 16384), 32769: (3, 10923), 49152: (3, 16384),
+                      49153: (4, 12289), 55152: (4, 13788), 2**20: (64, 16384)}
     for kernel, L in (("count_sort_segments", 257), ("rank_map_segments", 0)):
         with pytest.raises(ValueError):
             K.route(kernel, L)

@@ -115,7 +115,7 @@ with a non-zero exit at the first failure, it:
     23,741), and times each form beside its bound, its plain version, one
     PyTorch call and ``torch.sort(keys, stable=True)``, with each shape's
     routes (the launcher's against the plain-Python rule, and each launch
-    counted on its route);
+    counted on its route) and each sort instance's registers and spills;
 16. config 8, this slice's main path: ``mbcn_grid`` on three 3-variable
     daily Datasets (obs, hist, fut; 3,650 days each; data as
     bench.py:731-736) of 2,048 cells (32 x 64, about 5% NaN cells), 20
@@ -224,22 +224,28 @@ same function (where there is one); the last line is
 trials of K5, K6, K1 / K2 and K9 (or of the named sources: ``slide_sort``,
 ``interp``, ``rank_map``, ``sort_rows``): each trial switch of
 ``csrc/slide_sort.cu``, ``csrc/interp.cu``, ``csrc/rank_map.cu`` and
-``csrc/sort_rows.cu`` (``TRIALS``) is built as a variant, held bitwise
-against the default build, and timed beside it in turns at config 5 (K5),
-at config 8's fut block, config 9b's two calls, rows shaped as config G's
-ladder and mesh G's sketch row and three long rows with NaN knots (K6), at
-1950-2014 and 1950-2100 daily rows (K2's staged route against the search
-route before it: 300 rows, and the 1950-2100 grid's 8,192), and at the
-monthly, dense daily and config 8 rows
-(K9's unsort, ``scatter_`` beside) and 30-year, 1950-2014 and 1950-2100
-daily rows (K9's three forms on each route above 8,192), with each build's
-launch shape, registers and spills.
+``csrc/sort_rows.cu`` (``TRIALS``; ``SDT_RADIX_CORE_PR6=1``, the first
+radix core of ``csrc/radix_sort.cuh``, for all but ``interp``) is built as a variant,
+held bitwise against the default build, and timed beside it in turns at
+config 5 (K5), at config 8's fut block, config 9b's two calls, rows shaped
+as config G's ladder and mesh G's sketch row and three long rows with NaN
+knots (K6), at config 9a's rows (L = 730) and 1950-2014 and 1950-2100 daily
+rows (K2; on the staged route 300 rows and the 1950-2100 grid's 8,192, the
+chunk sort and the search also timed apart from a ``torch.profiler``
+trace), and at the monthly, config 8,
+30-year, dense daily, 1950-2014 and 1950-2100 daily rows (K9's three forms;
+``scatter_`` beside the unsort up to 3,650), with each build's launch
+shape, registers and spills.
 
 ``python3 chip_smoke.py --rank-map-times`` times only K1 and K2 through
 their wrappers at the main path's, config 5's and the 1950-2100 shapes,
-with the launches also queued behind a spin kernel; run from another
-tree's root (a copy of this file beside its package), it times that
-tree's kernels, so that two trees compare in one call.
+and K5 at config 5, with the launches also queued behind a spin kernel;
+run from another tree's root (a copy of this file beside its package), it
+times that tree's kernels, so that two trees compare in one call.
+
+``python3 chip_smoke.py --sass`` counts the SASS instructions of K9's
+block-route sort (config 8's rows), and of one item's ranking, in the
+default build and the first radix core's.
 
 ``python3 chip_smoke.py --pipeline`` runs only the pipeline phase (23),
 to time a change of ``parallel/pipeline.py`` against another tree's in
@@ -836,11 +842,41 @@ def kernel_phase(rng, dev):
     return results
 
 
+def radix_sass():
+    """``--sass``: the SASS of K9's block-route sort at 12 items a lane
+    (config 8's rows) in the default build and the ``SDT_RADIX_CORE_PR6=1``
+    build, by ``cuobjdump``: the kernel's instructions, its ballots, the
+    instructions from the first ballot of one item's ranking to the first
+    of the next (the second item of the pass's unrolled loop), and the
+    mean number from one of that item's eight ballots to the next."""
+    import re
+
+    from skdownscale_tpu_torch.kernels import build
+
+    frag = "sort_rows_block_kernelILb0ELi12E"
+    for label, defines in (("default", ()), ("the first radix core", ("SDT_RADIX_CORE_PR6=1",))):
+        sass = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+                               build.build("sort_rows", defines).path],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        body = sass[sass.index(frag):]
+        nxt = body.find("Function :", len(frag))
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                         body if nxt < 0 else body[:nxt])
+        votes = [i for i, op in enumerate(ops) if op.startswith("VOTE")]
+        if len(votes) > 16:
+            gaps = (f"{votes[16] - votes[8]} from one item's first ballot to the next item's, "
+                    f"{(votes[15] - votes[8]) / 7:.2f} from one of its ballots to the next")
+        else:  # a toolchain that prints the SASS otherwise: no second item to measure
+            gaps = "too few ballots to measure one item's ranking (n/a)"
+        print(f"sass {frag} {label}: {len(ops)} instructions, {len(votes)} ballots, {gaps}")
+
+
 def rank_map_times(dev):
     """``--rank-map-times``: K1 and K2 at KERNEL_SHAPES, config 5's K2 shape
-    and LONG_SHAPE, each through its wrapper (CUDA events over 20 calls)
-    and queued behind a spin kernel (``queued_ms``: the card's time, not
-    the host's issue), on ``adversarial`` data from SEED.  It uses only the
+    and LONG_SHAPE, and K5 at config 5, each through its wrapper (CUDA
+    events over 20 calls, 5 for K5) and queued behind a spin kernel
+    (``queued_ms``: the card's time, not the host's issue), on
+    ``adversarial`` data from SEED.  It uses only the
     wrappers, so that the same file can time another tree's package in one
     call (run it from that tree's root)."""
     import torch
@@ -859,6 +895,19 @@ def rank_map_times(dev):
             print(f"rank_map times: {name} B={B} G={G} L={L}: wrapper {cuda_ms(run):.4f} ms, "
                   f"queued {queued_ms(run):.4f} ms")
         del x, res
+    # K5 at config 5, whose first windows the radix sort of radix_sort.cuh sorts
+    from skdownscale_tpu_torch.kernels import slide_sort as S
+    from skdownscale_tpu_torch.models.batched import GROUP_CHUNK
+    from skdownscale_tpu_torch.models.slide import build_slide_plan
+    from skdownscale_tpu_torch.utils.timeindex import TimeIndex, padded_doy_groups
+
+    ti = TimeIndex.from_pandas(daily_index())
+    plan = build_slide_plan(padded_doy_groups(ti), np.arange(31))
+    yd = torch.from_numpy(adversarial(rng, D_CELLS, len(ti))).to(dev)
+    n_rows = -(-len(plan.consulted) // GROUP_CHUNK["daily"]) * GROUP_CHUNK["daily"]
+    run = lambda: S.slide_sorted_windows(yd, plan, n_rows=n_rows)  # noqa: E731
+    print(f"rank_map times: slide_sorted_windows config 5 ({D_CELLS} cells x {len(ti)} days): wrapper "
+          f"{cuda_ms(run, iters=5, warmup=1):.4f} ms, queued {queued_ms(run, iters=5):.4f} ms")
 
 
 def daily_index():
@@ -1200,6 +1249,27 @@ def print_top_kernels(what, fn):
           + f"; all {sum(r[0] for r in rows) / 1e3:.3f}")
 
 
+def traced_kernel_ms(fn, frags, iters=10):
+    """The device ms that one ``fn()`` spends in the kernels whose names
+    hold each of ``frags``, from a ``torch.profiler`` trace of ``iters``
+    calls after one warm-up call (0 where the trace shows none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(frags, 0.0)
+    for e in prof.key_averages():
+        for f in frags:
+            if str(e.device_type).endswith("CUDA") and f in e.key:
+                us[f] += getattr(e, "device_time_total", 0.0)
+    return {f: t / 1e3 / iters for f, t in us.items()}
+
+
 def stage_times(X, Y, dev, make_model):
     """The runner's steps one by one (X is packed once here; the runner
     packs it again for predict): host packing, copies, the host planning of
@@ -1456,27 +1526,38 @@ def ptxas_of(log, kernel):
 
 
 # the trial switches of csrc/slide_sort.cu, csrc/interp.cu,
-# csrc/rank_map.cu and csrc/sort_rows.cu, each built as a variant and timed
-# beside the default build by ``--trials``
+# csrc/rank_map.cu and csrc/sort_rows.cu (and SDT_RADIX_CORE_PR6 of
+# csrc/radix_sort.cuh, which all but interp.cu include), each built as a variant
+# and timed beside the default build by ``--trials``
 TRIALS = {
     "slide_sort": (("8 cells a block", ("SDT_K5_CELLS_PER_BLOCK=8",)),
                    ("buckets loaded a step ahead", ("SDT_K5_PREFETCH=1",)),
                    ("no floor on resident blocks", ("SDT_K5_MIN_BLOCKS=1",)),
-                   ("at least 8 resident blocks an SM", ("SDT_K5_MIN_BLOCKS=8",))),
+                   ("at least 8 resident blocks an SM", ("SDT_K5_MIN_BLOCKS=8",)),
+                   ("the first radix core", ("SDT_RADIX_CORE_PR6=1",))),
     "interp": (("staged wherever it fits", ("SDT_K6_ROUTE=1",)),
                ("device memory at every shape", ("SDT_K6_ROUTE=2",)),
                ("staged, 256 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=256")),
                ("staged, 512 threads a block", ("SDT_K6_ROUTE=1", "SDT_K6_THREADS=512")),
                ("no long-row route", ("SDT_K6_LONG_MIN=0",))),
-    "sort_rows": (("the unsort a block a row", ("SDT_K9_UNSORT_ROUTE=1",)),
-                  ("the unsort a warp a row up to 1,024", ("SDT_K9_UNSORT_ROUTE=2",)),
-                  ("the unsort a straight scatter", ("SDT_K9_UNSORT_ROUTE=3",)),
-                  ("the device-memory route above 8,192", ("SDT_K9_LONG_ROUTE=1",)),
-                  ("shared memory at 16 warps of 24 items", ("SDT_K9_SMEM_WARPS=16", "SDT_K9_SMEM_ITEMS=24")),
-                  ("shared memory at 32 warps of 8 items", ("SDT_K9_SMEM_ITEMS=8",)),
-                  ("clusters of 16 warps of 28 items", ("SDT_K9_CLUSTER_WARPS=16", "SDT_K9_CLUSTER_ITEMS=28"))),
-    "rank_map": (("the search route above 16,384", ("SDT_K2_SEARCH_ROUTE=1",)),),
+    "sort_rows": (("the device-memory route above 8,192", ("SDT_K9_LONG_ROUTE=1",)),
+                  ("the first radix core", ("SDT_RADIX_CORE_PR6=1",))),
+    "rank_map": (("the search route above 16,384", ("SDT_K2_SEARCH_ROUTE=1",)),
+                 ("the first radix core", ("SDT_RADIX_CORE_PR6=1",))),
 }
+
+
+def k9_sort_ptxas(route, wp, L):
+    """The mangled-name fragments of the K9 sort instance that ``route``
+    launches at row length ``L`` (with positions or not), as the launcher
+    of csrc/sort_rows.cu picks its template arguments."""
+    if route == "warp":
+        return f"sort_rows_warp_kernelILb{int(wp)}ELi{4 * -(-L // 128)}E"
+    if route == "block":
+        return f"sort_rows_block_kernelILb{int(wp)}ELi{4 if L <= 2048 else 12 if L <= 4096 else 16}E"
+    if route in ("smem", "cluster"):
+        return ("sort_rows_smem_kernel", f"ELb{int(wp)}ELb{int(route == 'cluster')}E")
+    return f"sort_rows_long_kernelILb{int(wp)}E"
 
 
 def trials(dev, sources):
@@ -1484,13 +1565,15 @@ def trials(dev, sources):
     sources, or all) against the default build of its source, K5 at config
     5, K6 at config 8's fut block, config 9b's two calls, a row shaped as
     config G's pooled ladder, one as mesh G's merged sketch row and three
-    long rows with NaN knots, K2 at 1950-2014 and 1950-2100 daily rows (300
-    rows, and the 8,192 rows of the 1950-2100 grid: the staged route and
-    the search route), K9's unsort at the monthly, dense daily and config 8 rows (with
-    ``scatter_`` timed beside) and its three forms at 30 years of days,
-    1950-2014 and 1950-2100: outputs bitwise equal to the default's,
-    CUDA-event times in turns
-    (default, each variant, default again) and each launch's shape."""
+    long rows with NaN knots, K2 at config 9a's rows (L = 730) and at
+    1950-2014 and 1950-2100 daily rows (300 rows, and the 8,192 rows of the
+    1950-2100 grid; the chunk sort and the search also timed from a
+    ``torch.profiler`` trace of the whole call), K9's
+    three forms at the monthly, config 8, 30-year, dense daily, 1950-2014
+    and 1950-2100 rows (``scatter_`` timed beside the unsort up to 3,650):
+    outputs bitwise equal to the default's, CUDA-event times in turns
+    (default, each variant, default again) and each launch's shape,
+    registers and spills."""
     import concurrent.futures
 
     import torch
@@ -1574,30 +1657,17 @@ def trials(dev, sources):
     if "sort_rows" in sources:
         unsort_kernels = {"warp": "unsort_rows_warp_kernel", "block": "unsort_rows_kernelILb",
                           "scatter": "unsort_rows_scatter_kernel"}
-        for name, B, L in (("monthly", M_CELLS * M_D, 304), ("dense daily windows", 512 * 366, 620),
-                           ("config 8", M_CELLS * M_D, M_T)):
+        for name, B, L in (("monthly", M_CELLS * M_D, 304), ("config 8", M_CELLS * M_D, M_T),
+                           ("30-year daily", M_CELLS * M_D, M30_T), ("dense daily windows", 512 * 366, 620),
+                           ("1950-2014 daily", M_CELLS, K9_1950_2014), ("1950-2100 daily", 512, 55_152)):
             x = torch.from_numpy(k9_rows(rng, B, L, "gauss")).to(dev)
             v = torch.from_numpy(rng.standard_normal((B, L), dtype=np.float32)).to(dev)
             _, pos = SR.launch_sort(libs[("sort_rows", "default")], x, True)
-            pos64 = pos.long()
-            scatter_ms = cuda_ms(lambda: torch.empty_like(v).scatter_(-1, pos64, v), iters=10, warmup=2)
-            print(f"trials K9 unsort {name} ({B} x {L}): scatter_ (one PyTorch call) {scatter_ms:.4f} ms")
-            turns("sort_rows", lambda lib: SR.launch_unsort(lib, v, pos),
-                  lambda got, want, label: bitwise_err(got, want, f"K9 unsort {name} trial {label}"),
-                  lambda lib: f"unsort route {SR.unsort_route(L, lib)}",
-                  lambda label: unsort_kernels[SR.unsort_route(L, libs[("sort_rows", label)])])
-            del x, v, pos, pos64
-        def k9_kernel(route, wp):
-            """The ptxas fragments of the sort kernel of ``route``."""
-            return {"smem": ("sort_rows_smem_kernel", f"ELb{int(wp)}ELb0E"),
-                    "cluster": ("sort_rows_smem_kernel", f"ELb{int(wp)}ELb1E"),
-                    "device": (f"sort_rows_long_kernelILb{int(wp)}E",)}[route]
-
-        for name, B, L in (("30-year daily", M_CELLS * M_D, M30_T), ("1950-2014 daily", M_CELLS, K9_1950_2014),
-                           ("1950-2100 daily", 512, 55_152)):
-            x = torch.from_numpy(k9_rows(rng, B, L, "gauss")).to(dev)
-            v = torch.from_numpy(rng.standard_normal((B, L), dtype=np.float32)).to(dev)
-            _, pos = SR.launch_sort(libs[("sort_rows", "default")], x, True)
+            if L <= M_T:
+                pos64 = pos.long()
+                scatter_ms = cuda_ms(lambda: torch.empty_like(v).scatter_(-1, pos64, v), iters=10, warmup=2)
+                print(f"trials K9 unsort {name} ({B} x {L}): scatter_ (one PyTorch call) {scatter_ms:.4f} ms")
+                del pos64
             for wp in (False, True):
                 form = "sort with positions" if wp else "sort"
 
@@ -1609,7 +1679,7 @@ def trials(dev, sources):
                 turns("sort_rows", lambda lib, wp=wp: SR.launch_sort(lib, x, wp), same,
                       lambda lib, wp=wp: (f"route {SR.sort_route(L, wp, lib)}, cluster blocks a row "
                                           f"{SR.built_cluster_size(L, wp, lib)}"),
-                      lambda label, wp=wp: k9_kernel(SR.sort_route(L, wp, libs[("sort_rows", label)]), wp))
+                      lambda label, wp=wp: k9_sort_ptxas(SR.sort_route(L, wp, libs[("sort_rows", label)]), wp, L))
             print(f"trials K9 unsort {name} ({B} x {L})")
             turns("sort_rows", lambda lib: SR.launch_unsort(lib, v, pos),
                   lambda got, want, label: bitwise_err(got, want, f"K9 unsort {name} trial {label}"),
@@ -1619,16 +1689,28 @@ def trials(dev, sources):
 
     if "rank_map" in sources:
         g = torch.Generator(device=dev).manual_seed(SEED)
-        for name, B, L in (("1950-2014 daily rows", 2_048, K9_1950_2014), ("1950-2100 daily rows", *LONG_SHAPE[::2]),
-                           ("the 1950-2100 grid's rows", *LONG_GRID_SHAPE[::2])):
-            x = long_adversarial(g, B, L, dev)
+        names = ["default"] + [label for label, _ in TRIALS["rank_map"]] + ["default"]
+        for name, B, L in (("config 9a's rows", Q_CELLS - 3_320, Q_PRED), ("1950-2014 daily rows", 2_048, K9_1950_2014),
+                           ("1950-2100 daily rows", *LONG_SHAPE[::2]), ("the 1950-2100 grid's rows", *LONG_GRID_SHAPE[::2])):
+            if L > K.BLOCK_MAX:
+                x = long_adversarial(g, B, L, dev)
+            else:  # daily temperatures near 283 K (config 9a), 1% NaN
+                x = torch.randn((B, L), generator=g, device=dev) * 8.0 + 283.0
+                x[torch.rand((B, L), generator=g, device=dev) < 0.01] = float("nan")
             res = torch.sort(torch.randn((B, L), generator=g, device=dev), dim=1).values
             print(f"trials rank_map_segments {name} (B={B}, L={L})")
             turns("rank_map", lambda lib: K.launch_rank_map(lib, x, res, L),
                   lambda got, want, label: bitwise_err(got, want, f"rank_map_segments {name} trial {label}"),
                   lambda lib: str(K.launch_geometry("rank_map_segments", L, lib)),
-                  lambda label: RANK_MAP_SECOND[K.launch_geometry(
-                      "rank_map_segments", L, libs[("rank_map", label)])["route"]])
+                  lambda label: rank_map_ptxas("rank_map_segments", K.launch_geometry(
+                      "rank_map_segments", L, libs[("rank_map", label)])))
+            if L > K.BLOCK_MAX:  # the chunk sort and the search, from one trace of each build, in turns
+                for i, label in enumerate(names):
+                    ms = traced_kernel_ms(lambda: K.launch_rank_map(libs[("rank_map", label)], x, res, L),
+                                          ("sort_chunks_kernel", "search_kernel"))
+                    again = " (again)" if i == len(names) - 1 else ""
+                    print(f"trial rank_map {label}{again} {name}: chunk sort {ms['sort_chunks_kernel']:.4f} ms, "
+                          f"search {ms['search_kernel']:.4f} ms (torch.profiler)")
             del x, res
 
 
@@ -2215,9 +2297,11 @@ def sort_kernel_phase(rng, dev):
     stable=True)``."""
     import torch
 
+    from skdownscale_tpu_torch.kernels import build
     from skdownscale_tpu_torch.kernels import sort_rows as S
     from skdownscale_tpu_torch.ops.keys import to_ordered_int
 
+    log = build.build("sort_rows").log
     results = {}
     for name, B, L, kind, timed in K9_CASES:
         L = S.K9_MAX_LEN if L is None else L(S) if callable(L) else L
@@ -2275,11 +2359,13 @@ def sort_kernel_phase(rng, dev):
                 # compulsory bytes; a sort compares each element log2 L times
                 ops = 0 if form == "unsort_rows" else n * np.log2(max(L, 2))
                 b_ms, b_by = bound(bytes_per * n, ops)
+                regs = ("" if form == "unsort_rows" else
+                        "; " + ptxas_of(log, k9_sort_ptxas(routes[form], form != "sort_rows", L)))
                 print(f"kernel {form} {name} ({B} x {L}, route {routes[form]}): kernel {ms:.4f} ms, "
                       f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, one PyTorch call "
                       f"{lib:.4f} ms, torch.sort(keys, stable=True) {stable_ms:.4f} ms, "
                       f"{ms / b_ms:.1f}x its bound; launches queued: kernel {q_ms:.4f} ms, one "
-                      f"PyTorch call {q_lib:.4f} ms")
+                      f"PyTorch call {q_lib:.4f} ms{regs}")
                 if name == "config 8":  # the main path's shape goes in the JSON line
                     results[form] = {"max_abs_err": errs[form], "ms": ms, "plain_ms": plain_ms,
                                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
@@ -4059,6 +4145,10 @@ def main() -> int:
         print(card)  # nvidia-smi's own line: name, power limit
         if sys.argv[1:2] == ["--trials"]:
             trials(torch.device("cuda", 0), sys.argv[2:])
+            print(card)
+            return 0
+        if sys.argv[1:2] == ["--sass"]:
+            radix_sass()
             print(card)
             return 0
         if sys.argv[1:2] == ["--rank-map-times"]:

@@ -67,9 +67,11 @@
 // * staged (L > 16,384, K2): positions no longer fit 16 bits and a row no
 //   longer fits shared memory, so the row is cut into C = ceil(L / 16,384)
 //   chunks of Lc = ceil(L / C) (the last shorter).  A first kernel sorts
-//   the folded keys of each chunk (a block a chunk, the block sort) into a
-//   64 KB slot of a device-memory scratch row, laid out as a search tree
-//   (below); a second takes a block a (row, chunk of queries), holds its
+//   the folded keys of each chunk (a block a chunk, the block sort on 16
+//   keys a lane, up to 32 warps) into a 64 KB slot of a device-memory
+//   scratch row, laid out as a search tree (below), each slot word written
+//   in order from the sorted chunk in shared memory; a second takes a
+//   block a (row, chunk of queries), holds its
 //   queries in registers in element order, stages the row's sorted chunks
 //   one after another into shared memory (cp.async, two buffers: the next
 //   chunk comes in while the block searches this one), and every query
@@ -83,9 +85,10 @@
 // 3.35 TB/s).  The packed route does L compares an element, two
 // instructions each: about 1.6e8 warp instructions at L = 40, some 0.2 ms
 // of the SMs' issue, so issue and the bytes are of the same size, and the
-// pipeline overlaps the two.  The radix routes spend some 60 warp
-// instructions a pass on 32 items (radix_sort.cuh), so issue and
-// shared-memory latency bound them, far above the bytes.
+// pipeline overlaps the two.  The radix routes spend some 57 warp
+// instructions a pass to rank 32 items, and more to scatter and read them
+// back (radix_sort.cuh), so instruction issue bounds them, far above the
+// bytes.
 //   The staged route does C searches of 14 probes a query, so it grows as
 // L^2 / 16,384: at L = 55,152, 56 probes a query.  On the search route
 // that it replaces (the trial switch below) those probes are dependent
@@ -107,16 +110,19 @@
 // of 4 B (mostly L2 hits: a row's res is 220 KB).  At large L the staged
 // chunks are C^2 x 64 KB a row (at L = 10^6, 61 chunks, 14 probes of
 // shared memory each, against 61 x 14 dependent device-memory loads).  On
-// an H100 (700 W) at 55,152 the chunk sort takes about 60% of the route's
-// time (about 39 ps an element: one block of 14 warps of 32 keys an SM, at
-// 115 registers), the search the rest.
+// an H100 (700 W) at 8,192 x 55,152 the chunk sort took 17.6 ms of 29.1
+// (39 ps an element) on the first core, one block of 14 warps of 32 keys an SM
+// at 115 registers; on the new core, 27 warps of 16 keys at 63 registers
+// (still one block an SM: two would need 37 registers a thread), 11.1 ms,
+// the search 11.5 (chip_smoke.py --trials).
 //
-// The one trial switch (chip_smoke.py --trials builds it and times it
+// The trial switches (chip_smoke.py --trials builds each and times it
 // against the default): SDT_K2_SEARCH_ROUTE=1 takes the route above 16,384
 // that came before this one (the "search" route), for a same-call
 // comparison: the same chunk sort, written in sorted order, then a thread
-// a query searching each chunk in device memory.  No default build takes
-// it.  The other knobs that the trials settled are constants below, each
+// a query searching each chunk in device memory; SDT_RADIX_CORE_PR6=1
+// (radix_sort.cuh) takes the first radix core and chunk sort.  No default
+// build takes either.  The other knobs that the trials settled are constants below, each
 // with its trial result (config 2's K1 / K2 ms unless said otherwise; H100
 // 80GB HBM3, 700 W).
 //
@@ -162,6 +168,21 @@ constexpr int kBlockMaxLen = 16384;            // longest L of the block route (
 constexpr int kChunkSlots = kBlockMaxLen;      // words of a chunk's slot, in scratch and staged
 constexpr int kTreeLevels = 14;                // levels of a chunk's search tree (2^14 - 1 members)
 constexpr int kStagedItems = 16;               // queries a thread on the staged route
+// Every radix route, K1's and K2's, runs the new radix core (radix_sort.cuh;
+// kFirstCoreTrial, true only in the trial build SDT_RADIX_CORE_PR6=1, gives
+// them the first: its ranking, and the chunk sort's 32 keys a lane on at
+// most 16 warps with each member stored from registers).  chip_smoke.py
+// --trials rank_map found the new one the faster at config 9a's L = 730
+// (K2's warp route) and the 1950-2100 rows (the chunk sort; K2's block
+// route shares its code), and --rank-map-times K1 no slower on it than on
+// the first (PERF.md).
+// keys a lane of the chunk sort on the new core, and its most warps (K2 at
+// the 1950-2100 grid's 8,192 x 55,152, chunks of 13,788, with the counters
+// read and written back but the first core's ballots: 16 keys a lane, 27 warps,
+// 24.8387 ms; 32 keys, 14 warps, 27.9084; H100 80GB HBM3, 700 W)
+constexpr int kChunkItems = 16;
+constexpr int kChunkMaxWarps = kChunkSlots / (kChunkItems * 32);
+static_assert(kChunkMaxWarps <= 32, "a chunk sort block holds at most 1,024 threads");
 constexpr int kStagedMaxThreads = kChunkSlots / kStagedItems;
 constexpr int kSearchThreads = 256;            // threads a block of the search trial
 constexpr bool kSearchTrial = SDT_K2_SEARCH_ROUTE != 0;
@@ -420,7 +441,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) count_sort_warp_kernel(RAN
   uint32_t key[ITEMS], pr[ITEMS];
   unsigned all, any;
   load_keys<ITEMS>([src](int j) { return ordered_ukey(src[j]); }, L, 0, lane, key, pr, all, any);
-  warp_radix_sort<ITEMS, false>(key, pr, all ^ any, counts, skey, nullptr, L, lane);
+  warp_radix_sort<ITEMS, false, kFirstCoreTrial>(key, pr, all ^ any, counts, skey, nullptr, L, lane);
   float* dst = out + seg * L;
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
@@ -451,7 +472,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock, ITEMS <= 24 ? kWarpMinBloc
   uint32_t key[ITEMS], pr[ITEMS];
   unsigned all, any;
   load_keys<ITEMS>([src](int j) { return folded_ukey(src[j]); }, L, 0, lane, key, pr, all, any);
-  warp_radix_sort<ITEMS, true>(key, pr, all ^ any, counts, skey, spos, L, lane);
+  warp_radix_sort<ITEMS, true, kFirstCoreTrial>(key, pr, all ^ any, counts, skey, spos, L, lane);
   // the sort's last reads of its buffers are behind it (__syncwarp)
   float* buf = reinterpret_cast<float*>(skey);
   const float* r = res + seg * L;
@@ -488,7 +509,7 @@ __global__ void __launch_bounds__(32 * kBlockRouteMaxWarps) rank_map_block_kerne
   uint32_t key[ITEMS], pr[ITEMS];
   unsigned all, any;
   load_keys<ITEMS>([src](int j) { return folded_ukey(src[j]); }, n, c0, lane, key, pr, all, any);
-  block_radix_sort<ITEMS, true>(key, pr, all, any, smem, L, n, c0);
+  block_radix_sort<ITEMS, true, kFirstCoreTrial>(key, pr, all, any, smem, L, n, c0);
 
   uint32_t* first_key = reinterpret_cast<uint32_t*>(smem);              // [kBlockRouteMaxWarps]
   int* first_end = reinterpret_cast<int*>(smem) + kBlockRouteMaxWarps;  // [kBlockRouteMaxWarps]
@@ -546,11 +567,27 @@ __device__ __forceinline__ int tree_slot(int p) {
   return (1 << (kTreeLevels - 1 - z)) + (q >> (z + 1));
 }
 
+// The sorted member of a chunk that slot s holds (tree_slot's inverse):
+// slot 0 the last member, slot s >= 1 at level v = floor(log2 s) (2^v
+// slots) the in-order node q = (2 (s - 2^v) + 1) << (kTreeLevels - 1 - v),
+// member q - 1.
+__device__ __forceinline__ int slot_member(int s) {
+  if (s == 0) return kChunkSlots - 1;
+  const int v = 31 - __clz(s);
+  return ((2 * (s - (1 << v)) + 1) << (kTreeLevels - 1 - v)) - 1;
+}
+
 // K2, long routes, first kernel: block b sorts chunk b % C of segment b / C
 // by folded key (the block sort, no positions) into scratch slot b, pads
-// (0xffffffff, which no query counts) after the chunk's members.
+// (0xffffffff, which no query counts) after the chunk's members.  The
+// first core's (kFirstCoreTrial) stores each member from registers at its
+// tree slot, a scattered 4 B store; the new core's leaves the sorted chunk
+// in the block's key buffer, and the block writes the slot in slot order, each
+// thread reading the member its slot holds from shared memory: coalesced
+// stores, and the last pass's read-back to registers is skipped.
 template <int ITEMS>
-__global__ void __launch_bounds__(32 * kBlockRouteMaxWarps) sort_chunks_kernel(RANK_MAP_ARGS) {
+__global__ void __launch_bounds__(32 * (kFirstCoreTrial ? kBlockRouteMaxWarps : kChunkMaxWarps))
+    sort_chunks_kernel(RANK_MAP_ARGS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int C = long_chunks(L), Lc = long_chunk_len(L);
@@ -563,14 +600,32 @@ __global__ void __launch_bounds__(32 * kBlockRouteMaxWarps) sort_chunks_kernel(R
   uint32_t key[ITEMS], pr[ITEMS];
   unsigned all, any;
   load_keys<ITEMS>([src](int j) { return folded_ukey(src[j]); }, n, c0, lane, key, pr, all, any);
-  block_radix_sort<ITEMS, false>(key, pr, all, any, smem, len, n, c0);
   uint32_t* dst = scratch + (int64_t)blockIdx.x * kChunkSlots;
+  if constexpr (kFirstCoreTrial) {
+    block_radix_sort<ITEMS, false, true>(key, pr, all, any, smem, len, n, c0);
 #pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int j = i * 32 + lane;
-    if (j < n) dst[tree_slot(c0 + j)] = key[i];
+    for (int i = 0; i < ITEMS; ++i) {
+      const int j = i * 32 + lane;
+      if (j < n) dst[tree_slot(c0 + j)] = key[i];
+    }
+    for (int p = len + threadIdx.x; p < kChunkSlots; p += blockDim.x) dst[tree_slot(p)] = kNanKey;
+    return;
   }
-  for (int p = len + threadIdx.x; p < kChunkSlots; p += blockDim.x) dst[tree_slot(p)] = kNanKey;
+  const int n_warps = blockDim.x >> 5;
+  uint32_t* skey = reinterpret_cast<uint32_t*>(smem + block_header_bytes(n_warps));
+  if (!block_radix_sort<ITEMS, false, false, false>(key, pr, all, any, smem, len, n, c0)) {
+    // no pass ran (one key holds the chunk): the registers hold it in order
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int j = i * 32 + lane;
+      if (j < n) skey[c0 + j] = key[i];
+    }
+    __syncthreads();
+  }
+  for (int t = threadIdx.x; t < kChunkSlots; t += blockDim.x) {
+    const int p = kSearchTrial ? t : slot_member(t);
+    dst[t] = p < len ? skey[p] : kNanKey;
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -782,8 +837,8 @@ Launch k2_plan(int64_t n_seg, int L) {
       });
     default: {  // a long route: the chunk sort first
       const int Lc = long_chunk_len(L);
-      return with_block_items(Lc, [&](auto ic) {
-        constexpr int I = decltype(ic)::value;
+      return with_block_items(Lc, [&](auto ic) {  // the first core's; else kChunkItems
+        constexpr int I = kFirstCoreTrial ? decltype(ic)::value : kChunkItems;
         return block_plan(k2_route(L), (const void*)sort_chunks_kernel<I>, false, I,
                           n_seg * long_chunks(L), Lc);
       });

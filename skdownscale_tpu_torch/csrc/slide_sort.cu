@@ -19,8 +19,8 @@
 // size n as a count, so nothing depends on the pad key's place in the
 // order.
 //   window 0   gathered from the cell's series and sorted by the warp radix
-//              sort of radix_sort.cuh (the one K9 runs); the sorted keys
-//              land in the window buffer;
+//              sort of radix_sort.cuh (the one K9 runs; kFirstCoreTrial
+//              there); the sorted keys land in the window buffer;
 //   each step  1. the leaving and entering buckets (BW <= 128 keys each,
 //                 one to four a lane) are gathered and sorted in registers
 //                 by a bitonic network of shuffles, then kept in a small
@@ -412,9 +412,9 @@ __global__ void __launch_bounds__(kBlockSort ? 32 * kBlockRouteMaxWarps : 32 * k
     load_keys<ITEMS>([=](int j) { return ordered_ukey(yc[w0_idx[c0 + j]]); }, m, c0, lane, key,
                      pr, all, any);
     if (kBlockSort) {
-      block_radix_sort<ITEMS, false>(key, pr, all, any, smem, n, m, c0);
+      block_radix_sort<ITEMS, false, kFirstCoreTrial>(key, pr, all, any, smem, n, m, c0);
     } else {
-      warp_radix_sort<ITEMS, false>(key, pr, all ^ any, scratch, W, nullptr, n, lane);
+      warp_radix_sort<ITEMS, false, kFirstCoreTrial>(key, pr, all ^ any, scratch, W, nullptr, n, lane);
     }
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {

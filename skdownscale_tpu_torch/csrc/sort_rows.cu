@@ -49,7 +49,8 @@
 //   starts at the tile's exclusive scan; a longer row takes each pass's
 //   starting places from the sweep, which then also counts all four
 //   digits (per group of four warps, the lanes of a digit found by nine
-//   ballots: __match_any_sync ran slower on the card).  The last pass's
+//   ballots, peers_of_bfe<9> on the new core: __match_any_sync ran slower
+//   on the card).  The last pass's
 //   buffer goes out once, 16-byte stores where aligned, positions widened
 //   to int32: the device-memory traffic is the compulsory 8 B an element
 //   (12 with positions).  Taking each pass's places from the sweep's
@@ -98,8 +99,7 @@
 //
 // Unsort.  The positions of a row are a permutation of 0..L-1, so the
 // unsort is a scatter, out[b, pos[b, i]] = vals[b, i]; a position outside
-// [0, L) is skipped, so nothing is written outside the row.  Three routes
-// (the trial switch SDT_K9_UNSORT_ROUTE forces one):
+// [0, L) is skipped, so nothing is written outside the row.  Three routes:
 // * a warp a row, kUnsortWarps rows a block, each warp with its own slice
 //   of shared memory and __syncwarp alone: the warp reads positions and
 //   values (16 bytes a lane where L is a multiple of 4 and the row bases
@@ -122,33 +122,38 @@
 // stages over 4,096 8-byte words a row, about 5.1 MB of shared-memory
 // traffic, with a block barrier a stage.  The radix sort moves each element
 // through shared memory once a pass (4 + 2 B written and read, about 175 KB
-// a row of 3,650 in four passes) and spends some 60 warp instructions a
-// pass on each 32 items (8 ballots and their masks, the counter update, the
-// scatter and the read-back); the counter updates and the scatter land on
-// random banks.  So instruction issue, shared-memory bank conflicts and
-// their latency bound it, hidden as far as the resident warps allow, far
-// above the bytes.  The shared-memory and cluster routes add the barriers
-// of each tile (two, and one a pass; a cluster.sync or two a pass) and,
-// for rows of more than one tile, a count of each digit (36 ballots an
-// element for the four); the cluster route's places in other blocks are
-// remote shared-memory stores.  TMA is not used: a row of 3,650 or 10,957
-// floats is not a multiple of 16 bytes, odd rows start unaligned, and the
-// compulsory bytes are a small part of the time.
+// a row of 3,650 in four passes).  Its instructions bound it, far above the
+// bytes: the first core took some 86 warp instructions a pass to rank each
+// 32 items at 3,650, the new core of radix_sort.cuh some 57 (chip_smoke.py
+// --sass), and the scatter, the read-back and the scan add to both.  The
+// counter updates and the scatter land on random banks.  Latency was not
+// the bound: four items' counter updates in flight before any broadcast
+// ran 3-12% slower (chip_smoke.py --trials), and cutting two of the
+// shared-memory route's five barriers a pass changed nothing (1.8867
+// against 1.8901 ms at 10,957).  The shared-memory and cluster routes add
+// the barriers of each tile (two, and one a pass; a cluster.sync or two a
+// pass) and, for rows of more than one tile, a count of each digit (36
+// ballots an element for the four); the cluster route's places in other
+// blocks are remote shared-memory stores.  TMA is not used: a row of 3,650
+// or 10,957 floats is not a multiple of 16 bytes, odd rows start
+// unaligned, and the compulsory bytes are a small part of the time.
 //
-// Resources (nvcc -Xptxas -v for sm_90a; resident blocks per SM from the
-// 65,536 registers and 228 KB of shared memory of an SM), with positions /
-// without: at 3,650 (12 items a lane, 10 warps) 63 / 63 registers a thread
-// and 32,320 / 25,008 B of shared memory a block, so the registers hold 3
-// blocks (30 warps) an SM; at 620 (20 items a lane) 80 / 80 registers and
-// 19,008 / 14,016 B a block of four rows, 6 blocks (24 warps); at 304 (12
-// items) 55 / 55 registers and 11,392 / 8,960 B, 9 blocks (36 warps).
-// Registers, not shared memory, set the resident blocks at every shape; a
-// few instances (16 to 32 items a lane) spill 8-20 B a thread.  The
-// shared-memory route (32 warps of 12 items) takes 64 / 62 registers and
+// Resources (nvcc -Xptxas -v for sm_90a, the new core; resident blocks per
+// SM from the 65,536 registers and 228 KB of shared memory of an SM), with
+// positions / without: at 3,650 (12 items a lane, 10 warps) 40 / 40
+// registers a thread under the floor of 4 blocks (12 / 8 B of spill
+// stores) and 32,272 / 24,960 B of shared memory a block: 4 blocks (40
+// warps) an SM, against the first core's 64 registers and 3 blocks; at
+// 620 (20 items
+// a lane) 64 / 64 registers under the floor of 8 blocks (24 / 8 B of spill
+// stores), 8 blocks (32 warps), against the first core's 80 and 6; at 304 (12
+// items) 55 / 53 registers, 9 blocks (36 warps).  Registers, not shared
+// memory, set the resident blocks at every shape.  The shared-memory
+// route (32 warps of 12 items) takes 63 / 63 registers and
 // row_smem_bytes(L) of shared memory (168,576 / 124,736 B at 10,957): one
 // block, 32 warps, an SM.  The cluster route (24 warps of 18 items) takes
-// 80 / 64 registers and 194,752 / 139,456 B a block of one full tile: one
-// block, 24 warps, an SM.  None spills; chip_smoke.py prints each
+// 80 / 66 registers and 194,752 / 139,456 B a block of one full tile: one
+// block, 24 warps, an SM.  Neither spills; chip_smoke.py prints each
 // instance's registers and spills.
 //
 // The C entry points take plain pointers, sizes and the CUDA stream, launch
@@ -162,30 +167,15 @@
 
 namespace cg = cooperative_groups;
 
-// Trial switches (chip_smoke.py --trials sort_rows builds and times each
-// against the default): the unsort's route (0: chosen by L; 1: a block a
-// row up to kUnsortBlockMax; 2: a warp a row up to 1,024, a block a row
-// above; 3: the straight scatter at every L); the route of rows above
-// 8,192 (0: chosen by L; 1: the device-memory route, with the unsort's
-// scatter); the warps a block and items a lane of the
-// shared-memory and cluster routes.
-#ifndef SDT_K9_UNSORT_ROUTE
-#define SDT_K9_UNSORT_ROUTE 0
-#endif
+// The one trial switch (chip_smoke.py --trials sort_rows builds and times
+// it against the default): SDT_K9_LONG_ROUTE=1 takes the device-memory route
+// (and the unsort's scatter) for every row above 8,192, so that its time
+// stays beside the shared-memory and cluster routes'.  The trial build
+// SDT_RADIX_CORE_PR6=1 of radix_sort.cuh takes the first core (its ranking
+// and launch bounds) at every route.  The knobs the trials settled are
+// constants below, each with its trial result (H100 80GB HBM3, 700 W).
 #ifndef SDT_K9_LONG_ROUTE
 #define SDT_K9_LONG_ROUTE 0
-#endif
-#ifndef SDT_K9_SMEM_WARPS
-#define SDT_K9_SMEM_WARPS 32
-#endif
-#ifndef SDT_K9_SMEM_ITEMS
-#define SDT_K9_SMEM_ITEMS 12
-#endif
-#ifndef SDT_K9_CLUSTER_WARPS
-#define SDT_K9_CLUSTER_WARPS 24
-#endif
-#ifndef SDT_K9_CLUSTER_ITEMS
-#define SDT_K9_CLUSTER_ITEMS 18
 #endif
 
 namespace {
@@ -202,19 +192,57 @@ constexpr int kTile = kLongWarps * kLongItems * 32;
 static_assert(kTile <= 65536, "tile indices travel as 16-bit payloads");
 // the shared-memory and cluster routes (kernels/sort_rows.py mirrors these)
 constexpr int kSmemLimit = 232448;     // shared memory a block may use
-constexpr int kSmemWarps = SDT_K9_SMEM_WARPS;
-constexpr int kSmemItems = SDT_K9_SMEM_ITEMS;
-constexpr int kClusterWarps = SDT_K9_CLUSTER_WARPS;
-constexpr int kClusterItems = SDT_K9_CLUSTER_ITEMS;
+// warps a block and items a lane of the shared-memory route (6,144 x 10,957,
+// sort / with positions, in the trials: 32 x 12 1.8757 / 2.0602 ms, 16 x
+// 24 2.1011 / 2.2305, 32 x 8 3.0920 / 3.2783)
+constexpr int kSmemWarps = 32;
+constexpr int kSmemItems = 12;
+// the same of the cluster route (2,048 x 23,741 with positions and 512 x
+// 55,152 both forms, in the trials: 24 x 18 2.6191 / 1.3799 / 1.9787 ms,
+// 16 x 28 2.8471 / 1.4882 / 2.0572, which spilled 48 B)
+constexpr int kClusterWarps = 24;
+constexpr int kClusterItems = 18;
 constexpr int kClusterMin = 2;  // 3 ran slower at 23,741 (4.00 against 2.77 ms)
 constexpr int kClusterMax = 4;
 constexpr int kClusterTile = kClusterWarps * kClusterItems * 32;
 static_assert(kClusterMax * kClusterTile <= 65536, "positions travel as 16-bit payloads");
-// the unsort's warp route: rows (warps) a block, and the longest row
+// the unsort's warp route: rows (warps) a block, and the longest row (it
+// ran faster than a block a row at 304 and 620 in the trials; a block a
+// row ran faster at 3,650)
 constexpr int kUnsortWarps = 8;
 constexpr int kUnsortWarpMax = 1024;
-constexpr int kUnsortBlockMax = kSmemLimit / 4;  // a row of floats in a block's shared memory
+// the block route's longest row: a row of floats in a block's shared memory
+// (at 6,144 x 10,957 0.2675 ms against the straight scatter's 1.0413, PR
+// 15's trials)
+constexpr int kUnsortBlockMax = kSmemLimit / 4;
 constexpr int kScatterThreads = 256;
+
+// Every route runs the new radix core (radix_sort.cuh; kFirstCoreTrial,
+// true only in the trial build SDT_RADIX_CORE_PR6=1, gives them the first):
+// chip_smoke.py --trials sort_rows found the new one the faster at 6,144
+// rows of 304 (the warp route), 3,650 (block) and 10,957 (shared memory);
+// the cluster route shares the shared-memory route's code, the
+// device-memory route the block route's.
+// The new core's floors on resident blocks an SM, which cap registers: the
+// warp route up to 24 items a lane at 8 (6,144 x 620 rows, sort / with
+// positions: 1.7495 / 1.8419 ms at 64 registers, 1.8533 / 1.9600 with no
+// floor at 89 / 90, 1.7417 / 1.8779 at 6), the block route of 12 items a
+// lane (2,048 < L <= 4,096: at most 11 warps) at 4 (6,144 x 3,650: 0.4203 /
+// 0.4546 ms at 40 registers, 0.4973 / 0.5699 with no floor, 0.4199 /
+// 0.4736 at 5 with 32 and 40-56 B of spill; H100 80GB HBM3, 700 W).  The
+// first core's build keeps its bounds.
+constexpr int kWarpMinBlocks = 8;
+constexpr int kBlock12Threads = 11 * 32;
+constexpr int kBlock12MinBlocks = 4;
+#if SDT_RADIX_CORE_PR6
+#define SDT_K9_WARP_BOUNDS __launch_bounds__(32 * kRowsPerBlock)
+#define SDT_K9_BLOCK_BOUNDS __launch_bounds__(32 * kBlockRouteMaxWarps)
+#else
+#define SDT_K9_WARP_BOUNDS __launch_bounds__(32 * kRowsPerBlock, ITEMS <= 24 ? kWarpMinBlocks : 1)
+#define SDT_K9_BLOCK_BOUNDS                                                           \
+  __launch_bounds__(ITEMS == 12 ? kBlock12Threads : 32 * kBlockRouteMaxWarps, \
+                    ITEMS == 12 ? kBlock12MinBlocks : 1)
+#endif
 
 enum UnsortRoute { kUnsortWarp = 0, kUnsortBlock = 1, kUnsortScatter = 2 };
 enum SortRoute { kRouteWarp = 0, kRouteBlock = 1, kRouteSmem = 2, kRouteCluster = 3, kRouteDevice = 4 };
@@ -240,7 +268,7 @@ __device__ __forceinline__ void store_chunk(const uint32_t (&key)[ITEMS],
 // (L <= 1,024 <= ITEMS * 32) in its own slice of shared memory: 256
 // counters, then the row's key and position buffers.
 template <bool kWithPos, int ITEMS>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
+__global__ void SDT_K9_WARP_BOUNDS
     sort_rows_warp_kernel(const float* __restrict__ x, float* __restrict__ out,
                           int32_t* __restrict__ pos_out, int64_t B, int L) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -256,7 +284,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
   uint32_t key[ITEMS], pr[ITEMS];
   unsigned all, any;
   load_keys<ITEMS>([src](int j) { return ordered_ukey(src[j]); }, L, 0, lane, key, pr, all, any);
-  warp_radix_sort<ITEMS, kWithPos>(key, pr, all ^ any, counts, skey, spos, L, lane);
+  warp_radix_sort<ITEMS, kWithPos, kFirstCoreTrial>(key, pr, all ^ any, counts, skey, spos, L, lane);
   store_chunk<ITEMS, kWithPos>(key, pr, out + row * L, kWithPos ? pos_out + row * L : nullptr, 0,
                                L, lane);
 }
@@ -266,7 +294,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
 // 32) of the row (none for a warp past it); shared memory as
 // block_radix_sort lays it out.
 template <bool kWithPos, int ITEMS>
-__global__ void __launch_bounds__(32 * kBlockRouteMaxWarps)
+__global__ void SDT_K9_BLOCK_BOUNDS
     sort_rows_block_kernel(const float* __restrict__ x, float* __restrict__ out,
                            int32_t* __restrict__ pos_out, int L) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -279,7 +307,7 @@ __global__ void __launch_bounds__(32 * kBlockRouteMaxWarps)
   uint32_t key[ITEMS], pr[ITEMS];
   unsigned all, any;
   load_keys<ITEMS>([src](int j) { return ordered_ukey(src[j]); }, n, c0, lane, key, pr, all, any);
-  block_radix_sort<ITEMS, kWithPos>(key, pr, all, any, smem, L, n, c0);
+  block_radix_sort<ITEMS, kWithPos, kFirstCoreTrial>(key, pr, all, any, smem, L, n, c0);
   store_chunk<ITEMS, kWithPos>(key, pr, out + base, kWithPos ? pos_out + base : nullptr, c0, n,
                                lane);
 }
@@ -326,7 +354,7 @@ __device__ __forceinline__ void long_tile(LongSmem& sm, const float* x, const ui
   unsigned* mine = sm.counts + warp * kBuckets;
   zero_counts(mine, lane);
   __syncwarp();
-  rank_digits<kLongItems>(key, pr, mine, shift, n, lane);
+  rank_digits<kFirstCoreTrial, kLongItems>(key, pr, mine, shift, n, lane);
   __syncthreads();  // every warp's counts are in
   // thread d: digit d's tile total, its exclusive scan within its group of
   // 32 digits, and each warp's offset for it (as block_radix_sort)
@@ -349,7 +377,8 @@ __device__ __forceinline__ void long_tile(LongSmem& sm, const float* x, const ui
   const unsigned start = __shfl_sync(kFull, group_base, d >> 5) + incl - total;
   sm.gofs[d] = (int)sm.hist[pass][d] - (int)start;
   sm.hist[pass][d] += total;
-  scatter<kLongItems, kWithPos, true>(key, pr, mine, group_base, sm.skey, sm.sidx, shift, n, lane);
+  scatter<kLongItems, kWithPos, true, kFirstCoreTrial>(key, pr, mine, group_base, sm.skey, sm.sidx,
+                                                       shift, n, lane);
   __syncthreads();  // the tile is in shared memory, ordered by digit
   for (int t = threadIdx.x; t < tn; t += blockDim.x) {
     const uint32_t k = sm.skey[t];
@@ -507,9 +536,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// the lanes of the warp whose v (< 512: a digit, or 0x100 for no item)
-// equals this lane's, by nine ballots (__match_any_sync ran slower on the
-// card: 2.48 against 2.08 ms at 2,048 x 23,741)
+// The first core's: the lanes of the warp whose v (< 512: a digit, or 0x100
+// for no item) equals this lane's, by nine ballots (__match_any_sync ran
+// slower on the card: 2.48 against 2.08 ms at 2,048 x 23,741)
 __device__ __forceinline__ unsigned match_peers(unsigned v) {
   unsigned peers = kFull;
 #pragma unroll
@@ -580,29 +609,6 @@ __device__ __forceinline__ void digit_exclusive_scan4(unsigned (&v)[kPasses], un
     }
   }
   __syncthreads();  // gs is free again
-}
-
-// rank_digits of radix_sort.cuh with each item's key read from the warp's
-// chunk in shared memory, keys[i * 32 + lane], where it is needed rather
-// than held in registers (the cluster route)
-template <int ITEMS>
-__device__ __forceinline__ void rank_digits_shared(const uint32_t* keys, uint32_t (&pr)[ITEMS],
-                                                   unsigned* counts, int shift, int n, int lane) {
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int left = n - i * 32;
-    if (left <= 0) break;  // the same for every lane
-    const unsigned valid = left >= 32 ? kFull : (1u << left) - 1u;
-    const unsigned d = lane < left ? (keys[i * 32 + lane] >> shift) & 0xffu : 0xffu;
-    const unsigned peers = peers_of(d) & valid;
-    const int first = __ffs(peers) - 1;  // -1 for a lane past the chunk
-    unsigned before = 0;
-    if (lane == first) before = atomicAdd(&counts[d], (unsigned)__popc(peers));
-    before = __shfl_sync(kFull, before, first & 31);
-    pr[i] = (pr[i] & 0xffff0000u) | (before + __popc(peers & below));
-    __syncwarp();  // the next item's counter updates see this one's
-  }
 }
 
 // Shared-memory route, 8,192 < L <= K9_SMEM_MAX (kCluster false): block b
@@ -680,7 +686,7 @@ __global__ void __launch_bounds__(32 * W)
 #pragma unroll
         for (int p = 0; p < kPasses; ++p) {
           const unsigned dig = valid ? (k >> (8 * p)) & 0xffu : 0x100u;
-          const unsigned peers = match_peers(dig);
+          const unsigned peers = kFirstCoreTrial ? match_peers(dig) : peers_of_bfe<9>(dig);
           if (valid && lane == __ffs(peers) - 1)
             atomicAdd(&grp[p * kBuckets + dig], (unsigned)__popc(peers));
         }
@@ -754,11 +760,15 @@ __global__ void __launch_bounds__(32 * W)
           if (kWithPos) pr[i] = (uint32_t)(first ? e0 + c0 + j : (int)sp[c0 + j]) << 16;
         }
       }
+      auto key_of = [&](int i) {  // 0xffffffff past the warp's elements
+        const int j = i * 32 + lane;
+        if (!kCluster) return key[kCluster ? 0 : i];
+        return j < wn ? sk[c0 + j] : 0xffffffffu;
+      };
       __syncwarp();  // the warp's reads of mine in the last tile's scatter are done
       zero_counts(mine, lane);
       __syncwarp();
-      if constexpr (kCluster) rank_digits_shared<ITEMS>(sk + c0, pr, mine, shift, wn, lane);
-      else rank_digits<ITEMS>(key, pr, mine, shift, wn, lane);
+      rank_digits_of<kFirstCoreTrial, ITEMS>(key_of, pr, mine, shift, wn, lane);
       __syncthreads();  // every warp's counts are in
       if (one_tile) {  // the pass's counts are the tile's
         unsigned total = 0, before = 0;
@@ -791,8 +801,8 @@ __global__ void __launch_bounds__(32 * W)
       for (int i = 0; i < ITEMS; ++i) {
         if (i * 32 >= wn) break;
         if (i * 32 + lane < wn) {
-          const uint32_t k = kCluster ? sk[c0 + i * 32 + lane] : key[kCluster ? 0 : i];
-          const unsigned dig = (k >> shift) & 0xffu;
+          const uint32_t k = key_of(i);
+          const unsigned dig = digit_of<kFirstCoreTrial>(k, shift);
           const int r = (int)(mine[dig] + (pr[i] & 0xffffu));  // the item's place in the row
           if (kCluster) {
             const int b = (r >= m) + (r >= 2 * m) + (r >= 3 * m);
@@ -991,6 +1001,7 @@ cudaError_t launch_block_route(const float* x, float* out, int32_t* pos, int64_t
   // the row holds no item and only takes part in the barriers
   int n_warps = (L + ITEMS * 32 - 1) / (ITEMS * 32);
   if (n_warps < kBuckets / 32) n_warps = kBuckets / 32;
+  if (ITEMS == 12 && 32 * n_warps > kBlock12Threads) return cudaErrorInvalidValue;  // its bounds
   const size_t smem = block_header_bytes(n_warps) + buffer_bytes(L, kWithPos);
   cudaError_t err = allow_smem(sort_rows_block_kernel<kWithPos, ITEMS>, smem);
   if (err != cudaSuccess) return err;
@@ -1103,13 +1114,10 @@ int launch_sort(const float* x, float* out, int32_t* pos, uint32_t* work, int64_
   return (int)err;
 }
 
-// The unsort's route at L (the trial switches may force one).
+// The unsort's route at L (the trial switch takes the scatter above 8,192).
 UnsortRoute unsort_route(int L) {
-  if (L > kUnsortBlockMax || SDT_K9_UNSORT_ROUTE == 3) return kUnsortScatter;
-  if (L > kMaxLen && SDT_K9_LONG_ROUTE == 1) return kUnsortScatter;
-  if (SDT_K9_UNSORT_ROUTE == 1) return kUnsortBlock;
-  const int warp_max = SDT_K9_UNSORT_ROUTE == 2 ? 1024 : kUnsortWarpMax;
-  return L <= warp_max ? kUnsortWarp : kUnsortBlock;
+  if (L > kUnsortBlockMax || (L > kMaxLen && SDT_K9_LONG_ROUTE == 1)) return kUnsortScatter;
+  return L <= kUnsortWarpMax ? kUnsortWarp : kUnsortBlock;
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }

@@ -43,6 +43,8 @@ import torch
 
 from skdownscale_tpu_torch.kernels import rank_map as K
 
+import _radix_model as R
+
 LANES = 32
 BIG = np.iinfo(np.int64).max
 NAN_KEY = np.uint32(0xFFFFFFFF)
@@ -183,10 +185,21 @@ def _run_end_match(key, after, more, base, carry):
     return np.where((hi == LANES - 1) & more & (key == after), carry, base + hi)
 
 
-def _sorted(xq, mutation):
+# the rankings of csrc/radix_sort.cuh (tests/_radix_model.py) by core: the
+# default build's (read, write back) or the first core's (SDT_RADIX_CORE_PR6=1)
+CORE_RANKING = {"rmw": "rmw", "first": "atomic"}
+CHUNK_ITEMS = 16  # keys a lane of the staged route's chunk sort on the default build
+
+
+def _sorted(xq, mutation, core=None, layout=None, core_mutation=None):
+    """The folded keys sorted stably with their positions: by argsort, or
+    (``core``) by the radix core's model on ``layout`` (warps, items)."""
     k = _folded(xq, mutation)
-    order = np.argsort(k, kind="stable")
-    return k[order], order
+    if core is None:
+        order = np.argsort(k, kind="stable")
+        return k[order], order
+    warps, items = layout
+    return R.lsd_sort(k, 1, warps, items, CORE_RANKING[core], mutation=core_mutation)
 
 
 def _fill(xq, res, keys, pos, j, L):
@@ -208,12 +221,12 @@ def _item_run_end(key, after, m, L, carry):
     return _run_end_match(key, after, m[0] + LANES < L, m[0], carry)
 
 
-def warp_k2(xq, res, L, mutation=None):
+def warp_k2(xq, res, L, mutation=None, core=None, core_mutation=None):
     """K2's warp route on one segment."""
-    keys, pos = _sorted(xq, mutation)
+    items = (L + 127) // 128 * 4
+    keys, pos = _sorted(xq, mutation, core, (1, items), core_mutation)
     if mutation == "run_start":
         return _fill(xq, res, keys, pos, _run_starts(keys), L)
-    items = (L + 127) // 128 * 4
     reg = np.full(items * LANES, NAN_KEY, np.uint32)  # pads past the row
     reg[:L] = keys
     reg = reg.reshape(items, LANES)
@@ -234,13 +247,13 @@ def _block_shape(L):
     return items, max(8, -(-L // (items * LANES)))
 
 
-def block_k2(xq, res, L, mutation=None):
+def block_k2(xq, res, L, mutation=None, core=None, core_mutation=None):
     """K2's block route on one segment: each warp's chunk scanned alone,
     then the later chunks' least run end where a chunk has none."""
-    keys, pos = _sorted(xq, mutation)
+    items, n_warps = _block_shape(L)
+    keys, pos = _sorted(xq, mutation, core, (n_warps, items), core_mutation)
     if mutation == "run_start":
         return _fill(xq, res, keys, pos, _run_starts(keys), L)
-    items, n_warps = _block_shape(L)
     chunk = items * LANES
     reg = np.full(n_warps * chunk, NAN_KEY, np.uint32)
     reg[:L] = keys
@@ -285,11 +298,42 @@ def tree_slot(p):
 TREE_SLOT = tree_slot(np.arange(K.CHUNK_SLOTS))
 
 
-def chunk_slot(members):
+def slot_member(s):
+    """csrc/rank_map.cu slot_member, tree_slot's inverse: the sorted member
+    slot s holds (slot 0 the last; slot s at level v = floor(log2 s) the
+    in-order node (2 (s - 2^v) + 1) << (13 - v), less one)."""
+    s = np.asarray(s, np.int64)
+    v = np.floor(np.log2(np.maximum(s, 1))).astype(np.int64)
+    return np.where(s == 0, K.CHUNK_SLOTS - 1, ((2 * (s - (1 << v)) + 1) << (TREE_LEVELS - 1 - v)) - 1)
+
+
+SLOT_MEMBER = slot_member(np.arange(K.CHUNK_SLOTS))
+
+
+def _chunk_sort_layout(n, core):
+    """(warps, items) of the chunk sort of ``n`` keys: 16 keys a lane on the
+    default build, the first core's block geometry on its own."""
+    if core == "first":
+        items, warps = _block_shape(n)
+        return warps, items
+    return max(8, -(-n // (CHUNK_ITEMS * LANES))), CHUNK_ITEMS
+
+
+def chunk_slot(members, core=None, core_mutation=None):
     """A chunk's scratch slot as the sort kernel writes it: the sorted
-    members, then pads (0xffffffff), each at its tree slot."""
+    members, then pads (0xffffffff).  Without ``core`` (and on the first
+    core, sorted by its model) each member is stored at its tree slot; the
+    default build sorts the chunk into its key buffer and each slot takes
+    the member it holds, ``slot_member``."""
     srt = np.full(K.CHUNK_SLOTS, NAN_KEY, np.uint32)
-    srt[: members.size] = np.sort(members)
+    if core is None:
+        srt[: members.size] = np.sort(members)
+    else:
+        layout = _chunk_sort_layout(members.size, core)
+        srt[: members.size], _ = R.lsd_sort(members, 1, *layout, CORE_RANKING[core], with_positions=False,
+                                            mutation=core_mutation)
+    if core == "rmw":
+        return srt[SLOT_MEMBER]
     slot = np.empty_like(srt)
     slot[TREE_SLOT] = srt
     return slot
@@ -321,7 +365,7 @@ def staged_blocks(L):
     return [(j * Lc, min(Lc, L - j * Lc)) for j in range(C)], threads
 
 
-def staged_k2(xq, res, L, mutation=None):
+def staged_k2(xq, res, L, mutation=None, core=None, core_mutation=None):
     """K2's staged route on one segment: chunk j's slot searched by every
     query of the segment (each block walks all C slots), the counts summed,
     out = res[c - 1].  Mutants: "foreign_strict" (chunk 0 counted with
@@ -336,7 +380,7 @@ def staged_k2(xq, res, L, mutation=None):
     own = np.arange(L) // Lc  # the chunk, and block, of each query
     c = np.zeros(L, np.int64)
     for j in range(C):
-        slot = chunk_slot(k[j * Lc : (j + 1) * Lc])
+        slot = chunk_slot(k[j * Lc : (j + 1) * Lc], core, core_mutation)
         strict = {"run_start": True, "foreign_strict": (own != 0) & (j == 0), "chunk_run_end": j > own}
         s = strict.get(mutation, False)
         if np.all(s):
@@ -361,9 +405,10 @@ def search_k2(xq, res, L, mutation=None):
     return np.where(k == NAN_KEY, np.float32(np.nan), res[np.clip(c - 1, 0, L - 1)])
 
 
-def model_k2(xq, res, L, mutation=None, search=False):
+def model_k2(xq, res, L, mutation=None, search=False, core=None, core_mutation=None):
     """K2 on (B, G*L) by the route the launcher takes (``search``: the
-    SDT_K2_SEARCH_ROUTE=1 build)."""
+    SDT_K2_SEARCH_ROUTE=1 build); ``core``: the radix routes' sorts by the
+    model of that ranking (tests/_radix_model.py), else by argsort."""
     flat, rflat = xq.reshape(-1), res.reshape(-1)
     rt = K.route("rank_map_segments", L)
     if search and rt == "staged":
@@ -371,15 +416,23 @@ def model_k2(xq, res, L, mutation=None, search=False):
     if rt == "packed":
         return packed_k2(flat, rflat, L, mutation).reshape(xq.shape)
     one = {"warp": warp_k2, "block": block_k2, "staged": staged_k2, "search": search_k2}[rt]
-    rows = [one(flat[a : a + L], rflat[a : a + L], L, mutation) for a in range(0, flat.size, L)]
+    kw = {} if rt == "search" else {"core": core, "core_mutation": core_mutation}
+    rows = [one(flat[a : a + L], rflat[a : a + L], L, mutation, **kw) for a in range(0, flat.size, L)]
     return np.concatenate(rows).reshape(xq.shape)
 
 
-def model_k1(x, L, mutation=None):
-    """K1 on (B, G*L): the packed route, or the warp route's stable sort."""
+def model_k1(x, L, mutation=None, core=None):
+    """K1 on (B, G*L): the packed route, or the warp route's stable sort
+    (by numpy, or ``core``: by the radix core's model on the warp's
+    ``4 * ceil(L / 128)`` items a lane, without positions)."""
     if K.route("count_sort_segments", L) == "packed":
         return packed_k1(x.reshape(-1), L, mutation).reshape(x.shape)
-    return _from_okeys(np.sort(_okeys(x.reshape(-1, L)), axis=1)).reshape(x.shape)
+    if core is None:
+        return _from_okeys(np.sort(_okeys(x.reshape(-1, L)), axis=1)).reshape(x.shape)
+    items = (L + 127) // 128 * 4
+    keys = np.stack([R.lsd_sort(k, 1, 1, items, CORE_RANKING[core], with_positions=False)[0]
+                     for k in _ukeys(x.reshape(-1, L))])
+    return _from_okeys((keys ^ np.uint32(0x80000000)).view(np.int32)).reshape(x.shape)
 
 
 # ----------------------------------------------------------------------
@@ -593,3 +646,76 @@ def test_packed_tiles_hold_whole_segments_and_leave_no_ragged_lanes():
         assert Lp % 4 == 0 and Lp - L < 4 and -(-threads // 32) * 32 - threads < 32
         idx, s, tl, _ = _windows(P, L, Lp, None)
         assert np.array_equal(np.sort(idx), np.arange(P * L))  # every element once
+
+
+# the radix routes at the radix core's edges: config 9a's L = 730 (a
+# warp), 1,024 / 1,025, 3,650 and 16,384 (a block of 16 warps of 32 keys)
+CORE_K2_SHAPES = [(5, 1, 730), (3, 2, 1024), (2, 1, 1025), (2, 1, 3650), (1, 1, 16384)]
+
+
+@pytest.mark.parametrize("B,G,L", CORE_K2_SHAPES)
+@pytest.mark.parametrize("core", ["rmw", "first"])
+def test_k2_radix_core_models_match_the_plain_version_bitwise(rng, core, B, G, L):
+    """K2's warp and block routes with the sort done by each ranking's
+    model (positions as 16-bit payloads) give the plain version bitwise."""
+    x = _segments(rng, B * G, L).reshape(B, G * L)
+    r = _res(rng, B * G, L).reshape(B, G * L)
+    np.testing.assert_array_equal(_bits(model_k2(x, r, L, core=core)), _bits(_plain_k2(x, r, L)))
+
+
+@pytest.mark.parametrize("L", [16385, 32768, 55152])
+@pytest.mark.parametrize("core", ["rmw", "first"])
+def test_k2_staged_chunk_sort_core_matches_the_plain_version_bitwise(rng, core, L):
+    """The staged route with each chunk sorted by each core's model (the
+    default build's on 16 keys a lane, its slot written in slot order from
+    the key buffer; the first core's stored member by member at tree slots), on tie runs
+    across chunk boundaries with NaN among them, -0 and +0 in different
+    chunks, all-NaN and all-equal segments: the plain version bitwise."""
+    x, r = _data(rng, 4, 1, L, "long"), _res(rng, 4, L)
+    np.testing.assert_array_equal(_bits(model_k2(x, r, L, core=core)), _bits(_plain_k2(x, r, L)))
+
+
+# K1's warp route (L = 65 to 256): its edges and config 5's L = 240
+CORE_K1_SHAPES = [(9, 1, 65), (4, 2, 240), (5, 2, 256)]
+
+
+@pytest.mark.parametrize("B,G,L", CORE_K1_SHAPES)
+@pytest.mark.parametrize("core", ["rmw", "first"])
+def test_k1_radix_core_models_match_the_plain_version_bitwise(rng, core, B, G, L):
+    """K1's warp route with the sort done by each ranking's model gives the
+    plain version bitwise (NaN payloads, -NaN, +-0, ties, all-equal rows)."""
+    x = _segments(rng, B * G, L).reshape(B, G * L)
+    assert K.route("count_sort_segments", L) == "warp"
+    np.testing.assert_array_equal(_bits(model_k1(x, L, core=core)), _bits(_plain_k1(x, L)))
+
+
+def test_slot_member_inverts_tree_slot():
+    """Writing slot s from member slot_member(s) of the sorted chunk lays
+    the chunk out as storing member p at tree_slot(p) does."""
+    assert np.array_equal(TREE_SLOT[SLOT_MEMBER], np.arange(K.CHUNK_SLOTS))
+    assert _chunk_sort_layout(13788, "rmw") == (27, 16)
+    assert _chunk_sort_layout(16384, "rmw") == (32, 16)  # at most 1,024 threads
+
+
+# each core mutant and the (B, G, L) shapes it must fail at: a warp (config
+# 9a's rows), a block, the staged route's chunk sort (1950-2100 daily)
+CORE_K2_MUTANTS = {"lanes": [(5, 1, 730), (2, 1, 3650), (1, 1, 55152)],
+                   "early_write": [(5, 1, 730), (2, 1, 3650), (1, 1, 55152)],
+                   "stale_read": [(5, 1, 730), (2, 1, 3650), (1, 1, 55152)],
+                   "warps": [(2, 1, 3650), (1, 1, 55152)], "skip": [(2, 1, 3650), (1, 1, 55152)]}
+
+
+@pytest.mark.parametrize("core_mutation", sorted(CORE_K2_MUTANTS))
+def test_k2_radix_core_mutants_disagree(rng, core_mutation):
+    """An unstable rank (no lower lanes, no earlier warps, a counter written
+    before its peers read it or read before the previous item's write) and
+    a pass skipped where the first warp's chunk holds one digit each make
+    K2's model disagree at every shape."""
+    differs = []
+    for B, G, L in CORE_K2_MUTANTS[core_mutation]:
+        x = _data(rng, B, G, L, "gauss" if L > K.BLOCK_MAX else "segments")
+        x[0, :1024] = 7.0  # a first warp's chunk of one key in a segment that varies
+        r = _res(rng, B * G, L).reshape(B, G * L)
+        got = model_k2(x, r, L, core="rmw", core_mutation=core_mutation)
+        differs.append(not np.array_equal(_bits(got), _bits(_plain_k2(x, r, L))))
+    assert all(differs), f"{core_mutation} agrees at {[s for s, d in zip(CORE_K2_MUTANTS[core_mutation], differs) if not d]}"

@@ -25,6 +25,8 @@ from skdownscale_tpu.ops.pallas import sort_kernel as JK
 
 from skdownscale_tpu_torch.kernels import sort_rows as K
 
+import _radix_model as R
+
 SHAPES = [(16, 620), (130, 40), (8, 236), (5, 1024), (3, 7)]
 
 
@@ -455,6 +457,118 @@ def test_sort_route_and_unsort_route_at_each_edge(L, sort, positions, unsort):
             assert K.row_smem_bytes(K.CLUSTER_TILE, K.CLUSTER_WARPS, wp) <= K.SMEM_LIMIT
     assert K.K9_SMEM_MAX == {False: 24424, True: 16280}
     assert [K.cluster_size(n) for n in (16281, 23741, 27648, 27649, 55152)] == [2, 2, 2, 3, 4]
+
+
+# ----------------------------------------------------------------------
+# the radix core of csrc/radix_sort.cuh (tests/_radix_model.py) at K9's
+# routes: the default build's ranking (read, write back) and the first
+# core's (an atomic add, the SDT_RADIX_CORE_PR6=1 trial build)
+# ----------------------------------------------------------------------
+
+
+def _k9_layout(L, with_positions):
+    """(blocks a row, warps a block, items a lane, bits of the position
+    payload) of the route K9 takes at ``L`` (``K.sort_route``), as the
+    launcher of csrc/sort_rows.cu sets them."""
+    route = K.sort_route(L, with_positions)
+    if route == "warp":
+        return 1, 1, 4 * -(-L // 128), R.POS_BITS
+    if route == "block":
+        items = 4 if L <= 2048 else 12 if L <= 4096 else 16
+        return 1, max(8, -(-L // (32 * items))), items, R.POS_BITS
+    if route == "smem":
+        return 1, K.SMEM_WARPS, K.SMEM_ITEMS, R.POS_BITS
+    if route == "cluster":
+        return K.cluster_size(L), K.CLUSTER_WARPS, K.CLUSTER_ITEMS, R.POS_BITS
+    return 1, LONG_WARPS, LONG_ITEMS, 32
+
+
+def _core_rows(rng, L):
+    """Rows of NaN payloads (0x7fffffff among them), -NaN, +-0 and +-inf;
+    one key (an all-equal row); heavy ties (one key in most places, so that
+    a warp's whole column holds one digit) with -0 and +0 among them; daily
+    temperatures near 283 K (a constant top byte)."""
+    x = _nan_zero_rows(rng, 4, L)
+    x[1] = 7.0
+    x[2] = 7.0
+    x[2, ::19], x[2, ::23] = -0.0, 0.0
+    x[2, ::31] = rng.normal(0, 5, x[2, ::31].size)
+    x[3] = np.float32(283.5) + rng.normal(0, 1, L).astype(np.float32)
+    return x
+
+
+def _core_sort(x, L, with_positions, ranking, **kw):
+    """Each row of ``x`` sorted by the core model on K9's route at ``L``:
+    (values, positions)."""
+    blocks, warps, items, pos_bits = _k9_layout(L, with_positions)
+    kw.setdefault("pos_bits", pos_bits)
+    rows = [R.lsd_sort(R.ordered_ukeys(r), blocks, warps, items, ranking, **kw) for r in x]
+    return np.stack([R.from_ukeys(k) for k, _ in rows]), np.stack([p for _, p in rows])
+
+
+# the route edges: a warp and a block a row (1,024 / 1,025), config 8's
+# rows, K9_MAX_LEN and one past it, 30 years of days, a chunk of K2's
+# 1950-2100 rows, each form's K9_SMEM_MAX and one past it, 16,384 / 16,385
+# and 1950-2100 daily rows (a cluster of 4)
+CORE_LENGTHS = [1024, 1025, 3650, 8192, 8193, 10957, 13788, 16280, 16281, 16384, 16385, 24424, 24425,
+                55152]
+
+
+@pytest.mark.parametrize("with_positions", [False, True], ids=["sort", "positions"])
+@pytest.mark.parametrize("L", CORE_LENGTHS)
+@pytest.mark.parametrize("ranking", ["rmw", "atomic"], ids=["rmw", "first"])
+def test_radix_core_models_match_the_plain_stable_sort_bitwise(rng, ranking, L, with_positions):
+    """Both rankings, on the geometry of the route each form takes at each
+    edge (a warp, a block, a block's tiles in shared memory, a cluster's
+    blocks), give the stable sort's values and positions bitwise."""
+    x = _core_rows(rng, L)
+    vals, pos = _core_sort(x, L, with_positions, ranking)
+    want_v, want_p = K.sort_rows_with_positions_plain(torch.from_numpy(x))
+    npt.assert_array_equal(_bits(vals), _bits(want_v.numpy()))
+    npt.assert_array_equal(pos, want_p.numpy())
+
+
+# each core mutant and the (L, with positions) shapes it must fail at: a
+# warp, a block, a block's one tile and two tiles in shared memory, a
+# cluster; the warps' and the skip's need more than one warp a row
+_ALL = [(620, True), (3650, True), (10957, True), (24424, False), (23741, True)]
+CORE_MUTANTS = {"lanes": _ALL, "early_write": _ALL, "stale_read": _ALL, "rank_bits": _ALL,
+                "pos_bits": _ALL, "warps": _ALL[1:], "skip": _ALL[1:]}
+
+
+@pytest.mark.parametrize("mutation", sorted(CORE_MUTANTS))
+def test_radix_core_mutants_disagree(rng, mutation):
+    """A rank without the lower lanes of its digit, a base without the
+    earlier warps, a counter written before its peers read it or read
+    before the previous item's write (what each of the two __syncwarp of
+    an item prevents), a pass skipped where the first warp's chunk holds
+    one digit, a rank field one bit narrower than the longest warp column
+    needs and a position payload one bit narrower than the row needs each
+    make the model disagree with the stable sort."""
+    differs = []
+    for L, wp in CORE_MUTANTS[mutation]:
+        x = _core_rows(rng, L)
+        x[0, : L // 4] = 7.0  # a first chunk of one key in a row that varies
+        _, _, items, _ = _k9_layout(L, wp)
+        kw = {"rank_bits": (32 * items).bit_length() - 1} if mutation == "rank_bits" else \
+            {"pos_bits": (L - 1).bit_length() - 1} if mutation == "pos_bits" else {"mutation": mutation}
+        vals, pos = _core_sort(x, L, wp, "rmw", **kw)
+        want_v, want_p = K.sort_rows_with_positions_plain(torch.from_numpy(x))
+        differs.append(not (np.array_equal(_bits(vals), _bits(want_v.numpy()))
+                            and np.array_equal(pos, want_p.numpy())))
+    assert all(differs), f"{mutation} agrees at {[s for s, d in zip(CORE_MUTANTS[mutation], differs) if not d]}"
+
+
+def test_radix_core_payload_halves_hold_every_route():
+    """A payload's 16-bit low half holds a warp's counts and ranks on every
+    route (at most 1,024 items a warp), and its 16-bit high half every
+    position of the routes that carry one there (all but device memory)."""
+    for L in (1, 1024, 1025, 2048, 4096, K.K9_MAX_LEN, K.K9_MAX_LEN + 1, K.K9_SMEM_MAX[True],
+              K.K9_SMEM_MAX[False], K.CLUSTER_MAX * K.CLUSTER_TILE, K.CLUSTER_MAX * K.CLUSTER_TILE + 1):
+        for wp in (False, True):
+            _, _, items, pos_bits = _k9_layout(L, wp)
+            assert 32 * items <= 1024 < 2**R.RANK_BITS
+            assert pos_bits == 32 or L <= 2**R.POS_BITS
 
 
 # the unsort's warp route: kUnsortWarps rows (warps) a block

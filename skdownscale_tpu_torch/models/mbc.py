@@ -42,6 +42,7 @@ import torch
 from ..kernels.sort_rows import on_rows
 from ..ops.interp import interp_rows
 from ..parallel.mesh import CellMesh, gather_objects, on_device
+from ..utils.profiling import annotate, host_wait
 from .base import SingleCellEstimator, asarray_2d
 from .quantile import edcdfm_predict, qmr_fit
 
@@ -66,9 +67,10 @@ def rank_reorder(values, template):
     ``rank(out[i]) == rank(template[i])``: one row sort of ``values``, one
     sort of ``template`` with positions, and the unsort of the sorted
     values by those positions (K9's three forms)."""
-    vs = on_rows("sort_rows", values)
-    _, pos = on_rows("sort_rows_with_positions", template)
-    return on_rows("unsort_rows", vs, pos)
+    with annotate("sdt.mbcn.rank"):
+        vs = on_rows("sort_rows", values)
+        _, pos = on_rows("sort_rows_with_positions", template)
+        return on_rows("unsort_rows", vs, pos)
 
 
 def mbcn_rotations(d: int, n_iterations: int, random_state: int = 0) -> np.ndarray:
@@ -104,11 +106,12 @@ def _rank_bracket(n: int, m: int, alpha: float, beta: float):
 def _rank_bracket_dev(n: int, m: int, alpha: float, beta: float, device, dtype):
     """Device copies of :func:`_rank_bracket`: (lo, hi) as int64, w in ``dtype``."""
     lo, hi, w = _rank_bracket(n, m, alpha, beta)
-    return (
-        torch.as_tensor(lo, dtype=torch.long).to(device),
-        torch.as_tensor(hi, dtype=torch.long).to(device),
-        torch.as_tensor(w, dtype=dtype).to(device),
-    )
+
+    def to(a, dtype):
+        with host_wait("mbcn_brackets"):
+            return torch.as_tensor(a, dtype=dtype).to(device)
+
+    return to(lo, torch.long), to(hi, torch.long), to(w, dtype)
 
 
 def _qm_rows_by_rank(z, ys, lo, hi, w):
@@ -135,22 +138,24 @@ def mbcn_margins(y_obs, x_hist, x_fut, *, kinds, extrapolate="both", n_endpoints
     yo_rows = y_obs.transpose(-1, -2)
     mh_cols: list = [None] * d
     mf_cols: list = [None] * d
-    for kind in sorted(set(kinds)):
-        idx = [j for j, k in enumerate(kinds) if k == kind]
-        sel = torch.as_tensor(idx, dtype=torch.long, device=x_hist.device)
-        xh_k = xh_rows.index_select(-2, sel)
-        state = qmr_fit(
-            xh_k, yo_rows.index_select(-2, sel), extrapolate=extrapolate, n_endpoints=n_endpoints
-        )
-        mh = edcdfm_predict(state, xh_k, kind=kind, extrapolate=extrapolate, n_endpoints=n_endpoints)
-        mf = edcdfm_predict(
-            state, xf_rows.index_select(-2, sel), kind=kind,
-            extrapolate=extrapolate, n_endpoints=n_endpoints,
-        )
-        for pos, j in enumerate(idx):
-            mh_cols[j] = mh[..., pos, :]
-            mf_cols[j] = mf[..., pos, :]
-    return torch.stack(mh_cols, dim=-2), torch.stack(mf_cols, dim=-2)
+    with annotate("sdt.mbcn.margins"):
+        for kind in sorted(set(kinds)):
+            idx = [j for j, k in enumerate(kinds) if k == kind]
+            with host_wait("mbcn_kinds"):
+                sel = torch.as_tensor(idx, dtype=torch.long, device=x_hist.device)
+            xh_k = xh_rows.index_select(-2, sel)
+            state = qmr_fit(
+                xh_k, yo_rows.index_select(-2, sel), extrapolate=extrapolate, n_endpoints=n_endpoints
+            )
+            mh = edcdfm_predict(state, xh_k, kind=kind, extrapolate=extrapolate, n_endpoints=n_endpoints)
+            mf = edcdfm_predict(
+                state, xf_rows.index_select(-2, sel), kind=kind,
+                extrapolate=extrapolate, n_endpoints=n_endpoints,
+            )
+            for pos, j in enumerate(idx):
+                mh_cols[j] = mh[..., pos, :]
+                mf_cols[j] = mf[..., pos, :]
+        return torch.stack(mh_cols, dim=-2), torch.stack(mf_cols, dim=-2)
 
 
 def mbcn_iterate(y_obs, mh_rows, mf_rows, rotations, lo, hi, w):
@@ -162,14 +167,19 @@ def mbcn_iterate(y_obs, mh_rows, mf_rows, rotations, lo, hi, w):
     back.  Returns the iterated (hist ``(..., n, d)``, fut ``(..., p, d)``)."""
     zh, zf = mh_rows.transpose(-1, -2), mf_rows.transpose(-1, -2)
     for Q in rotations:
-        yr = (y_obs @ Q).transpose(-1, -2)  # (..., d, m) rows per axis
-        zhr = (zh @ Q).transpose(-1, -2)
-        zfr = (zf @ Q).transpose(-1, -2)
-        ys = on_rows("sort_rows", yr)
-        zh_m, zs, ms = _qm_rows_by_rank(zhr, ys, lo, hi, w)
-        zf_m = interp_rows(zs, ms, zfr)
-        zh = zh_m.transpose(-1, -2) @ Q.T
-        zf = zf_m.transpose(-1, -2) @ Q.T
+        with annotate("sdt.mbcn.rotate"):
+            # (..., d, m) rows per axis, laid out as rows here, so K9 and K6 copy nothing
+            yr = (y_obs @ Q).transpose(-1, -2).contiguous()
+            zhr = (zh @ Q).transpose(-1, -2).contiguous()
+            zfr = (zf @ Q).transpose(-1, -2).contiguous()
+        with annotate("sdt.mbcn.rank"):
+            ys = on_rows("sort_rows", yr)
+            zh_m, zs, ms = _qm_rows_by_rank(zhr, ys, lo, hi, w)
+        with annotate("sdt.mbcn.interp"):
+            zf_m = interp_rows(zs, ms, zfr)
+        with annotate("sdt.mbcn.rotate"):
+            zh = zh_m.transpose(-1, -2) @ Q.T
+            zf = zf_m.transpose(-1, -2) @ Q.T
     return zh, zf
 
 
@@ -214,15 +224,17 @@ def mbcn_correct(
     d, n, m = x_hist.shape[-1], x_hist.shape[-2], y_obs.shape[-2]
     if len(kinds) != d:
         raise ValueError(f"kinds has {len(kinds)} entries for {d} variables")
-    dtype = torch.promote_types(x_hist.dtype, torch.float32)
-    y_obs, x_hist, x_fut = (t.to(dtype) for t in (y_obs, x_hist, x_fut))
-    rots = torch.as_tensor(rotations, dtype=dtype, device=x_hist.device)
-    lo, hi, w = _rank_bracket_dev(n, m, alpha, beta, x_hist.device, dtype)
-    mh_rows, mf_rows = mbcn_margins(
-        y_obs, x_hist, x_fut, kinds=kinds, extrapolate=extrapolate, n_endpoints=n_endpoints
-    )
-    zh_fin, zf_fin = mbcn_iterate(y_obs, mh_rows, mf_rows, rots, lo, hi, w)
-    return mbcn_reorder(mh_rows, zh_fin), mbcn_reorder(mf_rows, zf_fin)
+    with annotate("sdt.mbcn.correct"):
+        dtype = torch.promote_types(x_hist.dtype, torch.float32)
+        y_obs, x_hist, x_fut = (t.to(dtype) for t in (y_obs, x_hist, x_fut))
+        rots = torch.as_tensor(rotations, dtype=dtype, device=x_hist.device)
+        lo, hi, w = _rank_bracket_dev(n, m, alpha, beta, x_hist.device, dtype)
+        mh_rows, mf_rows = mbcn_margins(
+            y_obs, x_hist, x_fut, kinds=kinds, extrapolate=extrapolate, n_endpoints=n_endpoints
+        )
+        zh_fin, zf_fin = mbcn_iterate(y_obs, mh_rows, mf_rows, rots, lo, hi, w)
+        with annotate("sdt.mbcn.reorder"):
+            return mbcn_reorder(mh_rows, zh_fin), mbcn_reorder(mf_rows, zf_fin)
 
 
 def mbcn_correct_monthly(

@@ -43,6 +43,7 @@ import torch
 from ..ops.cdf import SYNTHETIC_MAX, SYNTHETIC_MIN, Cdf, calc_extrapolated_cdf, plotting_positions
 from ..ops.interp import interp_rows
 from ..ops.regression import ols_1d
+from ..utils.profiling import annotate, host_wait
 from .base import SingleCellEstimator, SingleCellTransformer, asarray_2d
 from .grouped import _rank_bracket_row, apply_ranked_rows
 from .trend import LinearTrendTransformer, TrendState, trend_fit, trend_line, trend_transform
@@ -139,15 +140,18 @@ class QmState(NamedTuple):
 
 def qm_fit(x, *, detrend: bool = False, alpha: float = 0.4, beta: float = 0.4) -> QmState:
     """``QuantileMapper.fit`` (``quantile.py:81-107``) on (..., n) series."""
-    if detrend:
-        tr = trend_fit(x)
-        x_to_cdf = trend_transform(tr, x)
-    else:
-        zeros = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-        tr = TrendState(zeros, zeros.clone())
-        x_to_cdf = x
-    cdf = cunnane_fit(x_to_cdf, alpha, beta)
-    return QmState(cdf.pp, cdf.vals, tr.slope, tr.intercept)
+    with annotate("sdt.qm.fit"):
+        if detrend:
+            with annotate("sdt.qm.trend"):
+                tr = trend_fit(x)
+                x_to_cdf = trend_transform(tr, x)
+        else:
+            zeros = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+            tr = TrendState(zeros, zeros.clone())
+            x_to_cdf = x
+        with annotate("sdt.qm.sort"):
+            cdf = cunnane_fit(x_to_cdf, alpha, beta)
+        return QmState(cdf.pp, cdf.vals, tr.slope, tr.intercept)
 
 
 def _cunnane_grid(n: int, alpha: float, beta: float) -> np.ndarray:
@@ -165,18 +169,16 @@ def _qm_tables(n: int, n_fit: int, alpha: float, beta: float, device, dtype):
     fpp = _cunnane_grid(n_fit, alpha, beta)
     lo, hi, w0, w1, right, below, above = _rank_bracket_row(fpp, qpp)
 
-    def f(a):
-        return torch.as_tensor(a, dtype=dtype).to(device)
-
-    def i(a):
-        return torch.as_tensor(a, dtype=torch.long).to(device)
+    def to(a, dtype=None):
+        with host_wait("qm_tables"):
+            return torch.as_tensor(a, dtype=dtype).to(device)
 
     return {
-        "lo": i(lo), "hi": i(hi), "w0": f(w0), "w1": f(w1),
-        "right": torch.as_tensor(right).to(device),
-        "below": torch.as_tensor(below).to(device), "any_below": bool(below.any()),
-        "above": torch.as_tensor(above).to(device), "any_above": bool(above.any()),
-        "qpp": f(qpp), "fpp": fpp,
+        "lo": to(lo, torch.long), "hi": to(hi, torch.long), "w0": to(w0, dtype), "w1": to(w1, dtype),
+        "right": to(right),
+        "below": to(below), "any_below": bool(below.any()),
+        "above": to(above), "any_above": bool(above.any()),
+        "qpp": to(qpp, dtype), "fpp": fpp,
     }
 
 
@@ -200,11 +202,28 @@ def qm_transform(
     lerp weights are host tables; per element the map is two takes and one
     fma, placed in element order by the rank map K2 with one segment per
     row.  ``alpha``/``beta`` must be the pair the state was fit with."""
-    if detrend:
-        tr_new = trend_fit(x)
-        x_to_cdf = trend_transform(tr_new, x)
-    else:
-        x_to_cdf = x
+    with annotate("sdt.qm.transform"):
+        if detrend:
+            with annotate("sdt.qm.trend"):
+                tr_new = trend_fit(x)
+                x_to_cdf = trend_transform(tr_new, x)
+        else:
+            x_to_cdf = x
+        n = x.shape[-1]
+        with annotate("sdt.qm.map"):
+            x_qmapped = _qm_map(state, x, x_to_cdf, alpha, beta, extrapolate, n_endpoints)
+        if detrend:
+            with annotate("sdt.qm.trend"):
+                x_qmapped = x_qmapped + trend_line(tr_new, n, x.dtype)
+                # reset the baseline (quantile.py:145)
+                x_qmapped = x_qmapped - (tr_new.intercept[..., None] - state.trend_intercept[..., None])
+        return x_qmapped
+
+
+def _qm_map(state: QmState, x, x_to_cdf, alpha, beta, extrapolate, n_endpoints):
+    """The map of :func:`qm_transform`: each rank's bracket takes through
+    the fit's sorted values, the tails, and K2 placing the mapped ranks in
+    the element order of ``x_to_cdf``."""
     n = x.shape[-1]
     n_fit = state.cdf_vals.shape[-1]
     tb = _qm_tables(n, n_fit, alpha, beta, x.device, x.dtype)
@@ -219,22 +238,20 @@ def qm_transform(
     ne = min(n_endpoints, n_fit)
     fpp = tb["fpp"]
     if extrapolate in ("min", "both") and tb["any_below"]:
-        lo_s, lo_i = ols_1d(torch.as_tensor(fpp[:ne], dtype=x.dtype).to(x.device), vals[..., :ne])
+        with host_wait("qm_tail"):
+            fpp_lo = torch.as_tensor(fpp[:ne], dtype=x.dtype).to(x.device)
+        lo_s, lo_i = ols_1d(fpp_lo, vals[..., :ne])
         res = torch.where(tb["below"], lo_i[..., None] + lo_s[..., None] * tb["qpp"], res)
     if extrapolate in ("max", "both") and tb["any_above"]:
-        hi_s, hi_i = ols_1d(torch.as_tensor(fpp[-ne:], dtype=x.dtype).to(x.device), vals[..., -ne:])
+        with host_wait("qm_tail"):
+            fpp_hi = torch.as_tensor(fpp[-ne:], dtype=x.dtype).to(x.device)
+        hi_s, hi_i = ols_1d(fpp_hi, vals[..., -ne:])
         res = torch.where(tb["above"], hi_i[..., None] + hi_s[..., None] * tb["qpp"], res)
 
     lead = x.shape[:-1]
     rows_q = x_to_cdf.reshape(-1, n)
     res_rows = torch.broadcast_to(res, (*lead, n)).reshape(-1, n)
-    x_qmapped = apply_ranked_rows(res_rows, rows_q).reshape(*lead, n)
-
-    if detrend:
-        x_qmapped = x_qmapped + trend_line(tr_new, n, x.dtype)
-        # reset the baseline (quantile.py:145)
-        x_qmapped = x_qmapped - (tr_new.intercept[..., None] - state.trend_intercept[..., None])
-    return x_qmapped
+    return apply_ranked_rows(res_rows, rows_q).reshape(*lead, n)
 
 
 class QmrState(NamedTuple):
@@ -351,14 +368,16 @@ def _bracket_interp(vals, tabs, dtype):
     """Apply a host bracket plan to a (..., nfit+2) value table -> (..., nq+2).
     Out-of-range query pps were clamped to the end knots by the plan
     (np.interp clamp semantics, matching :func:`interp_rows`)."""
+
+    def to(a, dtype=None):
+        with host_wait("qdm_brackets"):
+            return torch.as_tensor(a, dtype=dtype).to(vals.device)
+
     lo, hi, w0, w1, right = tabs
-    dev = vals.device
-    f0 = vals.index_select(-1, torch.as_tensor(lo, dtype=torch.long).to(dev))
-    f1 = vals.index_select(-1, torch.as_tensor(hi, dtype=torch.long).to(dev))
+    f0 = vals.index_select(-1, to(lo, torch.long))
+    f1 = vals.index_select(-1, to(hi, torch.long))
     df = f1 - f0
-    w0 = torch.as_tensor(w0, dtype=dtype).to(dev)
-    w1 = torch.as_tensor(w1, dtype=dtype).to(dev)
-    return torch.where(torch.as_tensor(right).to(dev), f1 + w1 * df, f0 + w0 * df)
+    return torch.where(to(right), f1 + to(w1, dtype) * df, f0 + to(w0, dtype) * df)
 
 
 def _sort_with_positions(x):

@@ -1288,3 +1288,90 @@ def test_meshes_of_one_card_match_the_unsharded_runs(cuda_device, rng, monkeypat
     sc, n, _ = feed_zarr_cells(path, mesh, var="gcm")
     assert n == 40 and all(s.dtype == torch.float32 and s.is_cuda for s in sc.shards)
     npt.assert_array_equal(sc.gather()[:40], x.T)
+
+
+def _wait_jobs(device, rng):
+    """One job of each daily path on few cells at full record lengths: a
+    quantile map whose transform reaches past its fit (1950-2014 onto
+    1950-2100), one of equal 30-year lengths, and 30-year MBCn of three
+    variables."""
+    from skdownscale_tpu_torch.models import batched, mbc
+
+    def qm(fit_days, days):
+        fit, x = (torch.from_numpy((283 + rng.normal(0, 4, (64, n, 1))).astype(np.float32)).to(device)
+                  for n in (fit_days, days))
+        model = P.QuantileMapper(detrend=True)
+        return lambda: batched.batched_transform(model, batched.batched_fit(model, None, fit, None), None, x, None)
+
+    blocks = [torch.from_numpy((10 + rng.gamma(4, 1, (64, 10_957, 3))).astype(np.float32)).to(device)
+              for _ in range(3)]
+    rots = torch.as_tensor(mbc.mbcn_rotations(3, 4, 0), dtype=torch.float32, device=device)
+    return {
+        "qm_1950_2100": qm(23_741, 55_152),
+        "qm_30y": qm(10_957, 10_957),
+        "mbcn_30y": lambda: mbc.mbcn_correct(*blocks, rots, kinds=("difference",) * 3, extrapolate="both"),
+    }
+
+
+# HOST_WAITS a job on a warm table cache: the transform's two tail copies;
+# none at equal lengths; MBCn's index copy of its one kind
+WARM_WAITS = {"qm_1950_2100": 2, "qm_30y": 0, "mbcn_30y": 1}
+
+
+# the spans of each path's job that are the parents of the others
+PARENTS = {"qm_1950_2100": ("sdt.qm.fit", "sdt.qm.transform"), "qm_30y": ("sdt.qm.fit", "sdt.qm.transform"),
+           "mbcn_30y": ("sdt.mbcn.correct",)}
+CHILDREN = {"qm_1950_2100": ("sdt.qm.trend", "sdt.qm.sort", "sdt.qm.map"),
+            "qm_30y": ("sdt.qm.trend", "sdt.qm.sort", "sdt.qm.map"),
+            "mbcn_30y": ("sdt.mbcn.margins", "sdt.mbcn.rotate", "sdt.mbcn.rank", "sdt.mbcn.interp")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profiled", [False, True], ids=["unprofiled", "profiled"])
+@pytest.mark.parametrize("cache", ["warm", "cold"])
+@pytest.mark.parametrize("path", sorted(WARM_WAITS))
+def test_host_waits_count_every_sync_of_the_daily_paths(cuda_device, rng, path, cache, profiled, monkeypatch):
+    """Under ``torch.cuda.set_sync_debug_mode("warn")`` a job raises one
+    sync warning a wait that ``HOST_WAITS`` counts: no wait uncounted, none
+    counted twice; on a cold table cache the tables' copies count too.
+    Under a profiler the spans' CUDA events add no sync, each span of the
+    record has device time, and the layers' spans fit inside their parents."""
+    import contextlib
+    import sys
+    import warnings
+
+    from skdownscale_tpu_torch.models import mbc
+    from skdownscale_tpu_torch.models import quantile as Q
+    from skdownscale_tpu_torch.utils.profiling import HOST_WAITS, recorded_spans
+
+    job = _wait_jobs(cuda_device, rng)[path]
+    job()
+    torch.cuda.synchronize()
+    if cache == "cold":
+        Q._qm_tables.cache_clear()
+        mbc._rank_bracket_dev.cache_clear()
+    stub = sys.modules.get("xarray")  # torch.profiler looks up its spec; the suite's stand-in has none
+    if profiled and stub is not None and stub.__spec__ is None:
+        monkeypatch.delitem(sys.modules, "xarray")
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = sum(HOST_WAITS.values())
+    with warnings.catch_warnings(record=True) as caught, \
+            torch.profiler.profile(activities=activities) if profiled else contextlib.nullcontext():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            job()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    counted = sum(HOST_WAITS.values()) - before
+    assert len(syncs) == counted, syncs
+    if cache == "warm":
+        assert counted == WARM_WAITS[path]
+    if profiled:
+        torch.cuda.synchronize()
+        record = recorded_spans()
+        assert sum(r["count"] for n, r in record.items() if n.startswith("sdt.wait.")) == counted
+        assert all(record[n]["device_ms"] > 0 for n in PARENTS[path] + CHILDREN[path]), record
+        parents = sum(record[n]["device_ms"] for n in PARENTS[path])
+        assert sum(record[n]["device_ms"] for n in CHILDREN[path]) <= parents

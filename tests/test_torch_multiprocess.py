@@ -14,6 +14,11 @@ package's batched BCSD core and its sketch on 8 virtual devices within
 1e-9 and 1e-10 (float64, other summation orders).  Each job has a timeout.
 """
 
+import signal
+import subprocess
+import sys
+import time
+
 import numpy as np
 import numpy.testing as npt
 import pandas as pd
@@ -60,7 +65,7 @@ def test_two_process_feed_matches_single_process(tmp_path):
     out, ladder, n1, n_cells, _ = dry_run(store, cell_mesh(["cpu"] * 8), sample_per_shard=M, quantiles=Q)
     single, lad1 = out.gather()[:n_cells], ladder.numpy()
     multi, (lad2, n2), meta2 = run_job(2, store, str(tmp_path / "out2"), device="cpu", shards=8,
-                                       sample_per_shard=M, quantiles=Q, timeout=240)
+                                       sample_per_shard=M, quantiles=Q, timeout=120)
     assert [m["process_count"] for m in meta2] == [2, 2] and meta2[0]["shards"] == 8
     assert multi.shape == (N_CELLS, N_TIME)
     npt.assert_array_equal(multi, single)  # bitwise: the same shards, the same order
@@ -81,3 +86,20 @@ def test_two_process_feed_matches_single_process(tmp_path):
     assert int(jn) == n1
     npt.assert_allclose(lad1, np.asarray(jlad), rtol=0, atol=1e-10)
     assert torch.distributed.is_available()
+
+
+def test_run_job_kills_its_processes_past_the_timeout(tmp_path, monkeypatch):
+    """A job that hangs ends at ``timeout``: ``run_job`` raises, and every
+    process of the job has been killed and reaped."""
+    started, popen = [], subprocess.Popen
+
+    def sleeper(args, **kwargs):
+        started.append(popen([sys.executable, "-c", "import time; time.sleep(60)"], **kwargs))
+        return started[-1]
+
+    monkeypatch.setattr(subprocess, "Popen", sleeper)
+    t0 = time.monotonic()
+    with pytest.raises(subprocess.TimeoutExpired):
+        run_job(2, str(tmp_path / "grid.zarr"), str(tmp_path / "out"), device="cpu", timeout=1)
+    assert time.monotonic() - t0 < 10
+    assert [p.returncode for p in started] == [-signal.SIGKILL] * 2
